@@ -9,12 +9,15 @@ Phases:
      shapes of the training step (forward and gradient), and time the kernel,
      the plain version and one PyTorch library call computing the same function;
      then hold the forward at a few shapes off the main path (ragged ones);
-  3. run the VINCE pretraining step (ResNet50, batch 128 = 32 videos x 4 frames,
-     224x224 crops of 256x256 uint8 canvases, queue 65536, embeddings 128,
-     bf16, fused InfoNCE queue kernel and fused bn2->relu->conv3 kernel) for
-     2 warm-up and 5 timed steps, counting each kernel's launches;
-  4. run one more step from the same state and batch through the plain
-     versions and compare the loss and the updated weights.
+  3. run the VINCE pretraining step (batch 128 = 32 videos x 4 frames, 224x224
+     crops of 256x256 uint8 canvases, queue 65536, embeddings 128, bf16, fused
+     InfoNCE queue kernel) for 2 warm-up and 5 timed steps, counting each
+     kernel's launches, once with a ResNet50 (fused bn2->relu->conv3 kernel)
+     and once with an EfficientNet-B0 (depthwise kernel, forward and dgrad);
+  4. after each, run one more step from the same state and batch through the
+     plain versions and compare the loss and the updated weights;
+  5. call the stand-alone op ``affine_conv3x3_stats`` (no model uses it),
+     forward and backward, at its three shapes.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -210,12 +213,215 @@ def check_affine_relu_dot_moments(dev):
             "check": "ok"}
 
 
+# the stride-1 depthwise sites of EfficientNet-B0 at batch 128, 224x224:
+# (N, H, W, C, k, sites per forward, blocks)
+K4_SHAPES = [(128, 112, 112, 32, 3, 1, "block_0"), (128, 56, 56, 144, 3, 1, "block_2"),
+             (128, 28, 28, 240, 5, 1, "block_4"), (128, 14, 14, 480, 3, 2, "block_6-7"),
+             (128, 14, 14, 480, 5, 1, "block_8"), (128, 14, 14, 672, 5, 2, "block_9-10"),
+             (128, 7, 7, 1152, 5, 3, "block_12-14"), (128, 7, 7, 1152, 3, 1, "block_15")]
+
+
+def wl_lib(w):
+    """[k,k,1,C] -> the library's [C,1,k,k] channels-last weight."""
+    return w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+
+def library_depthwise(x, w):
+    """The library call: the grouped convolution on the channels-last view."""
+    return torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), wl_lib(w),
+                                      padding=w.shape[0] // 2,
+                                      groups=x.shape[-1]).permute(0, 2, 3, 1)
+
+
+def depthwise_grads(k4, x, w, cot):
+    xk, wk = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    (k4.depthwise_conv(xk, wk.to(x.dtype)).float() * cot).sum().backward()
+    return xk.grad, wk.grad
+
+
+def check_depthwise_conv(dev):
+    from vince_tpu_torch.ops.kernels import depthwise_kernel as k4
+    from vince_tpu_torch.ops.kernels import plain_versions
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    errs, errs_w = [], []
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    total, total_w = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0.0)
+    share, share_w = ({"bytes": 0.0, "operations": 0.0} for _ in range(2))
+    for n, h, wd, c, k, sites, blocks in K4_SHAPES:
+        log(f"K4 depthwise_conv: x [{n},{h},{wd},{c}] bf16, k={k} ({blocks}, x{sites} sites)")
+        x = torch.randn(n, h, wd, c, generator=g, device=dev).bfloat16()
+        w = torch.randn(k, k, 1, c, generator=g, device=dev) * 0.2
+        wb = w.bfloat16()
+        cot = torch.randn(n, h, wd, c, generator=g, device=dev).bfloat16().float()
+        # no fma in the kernel and the plain version's order of sums: bit-equal
+        errs.append(compare("out", k4.depthwise_conv_forward(x, wb), k4._reference(x, wb), 0, 0))
+        dx_k, dw_k = depthwise_grads(k4, x, w, cot)
+        with plain_versions():
+            dx_p, dw_p = depthwise_grads(k4, x, w, cot)
+        errs.append(compare("dx", dx_k, dx_p, 0, 0))
+        # dw, rounded to bf16 on both sides from f32 sums of the same rounded
+        # products in another order: one bf16 ulp, plus 1e-3 of the largest
+        # entry where a sum cancels; the f32 sums themselves to 1e-4 of it
+        errs_w.append(compare("dw", dw_k, dw_p, 8e-3, 1e-3))
+        cot_b = cot.bfloat16()
+        errs_w.append(compare("dw in f32", k4.depthwise_wgrad(x, cot_b, k),
+                              k4._reference_wgrad(x, cot_b, k), 1e-4, 1e-4))
+        # and against autograd through the library convolution, which rounds
+        # elsewhere: 2 bf16 ulp plus 2e-2 of the largest entry
+        xl, wl = x.clone().requires_grad_(True), wb.clone().requires_grad_(True)
+        (library_depthwise(xl, wl).float() * cot).sum().backward()
+        compare("dw vs library autograd", dw_k, wl.grad, 1.6e-2, 2e-2)
+        t_wl = time_ms(lambda: torch.ops.aten.convolution_backward(
+            cot_b.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), wl_lib(wb), None, [1, 1],
+            [k // 2, k // 2], [1, 1], False, [0, 0], c, [False, True, False]))
+        del xl, dx_k, dx_p
+
+        elems = n * h * wd * c
+        # forward (the dgrad is the same kernel at the same shape): x in, out out
+        t_b, by = bound(2 * 2 * elems + 2 * k * k * c, 2 * k * k * elems, F32_FLOPS)
+        times = (time_ms(lambda: k4.depthwise_conv_forward(x, wb)),
+                 time_ms(lambda: k4._reference(x, wb), iters=5, warmup=1),
+                 time_ms(lambda: library_depthwise(x, wb)), t_b)
+        log("  forward, cold L2: kernel {:.4f} ms, plain {:.4f} ms, library {:.4f} ms, "
+            "bound {:.4f} ms ({})".format(*times, by))
+        # wgrad: x and g in, k*k*C f32 out
+        t_bw, by_w = bound(2 * 2 * elems + 4 * k * k * c, 2 * k * k * elems, F32_FLOPS)
+        times_w = (time_ms(lambda: k4.depthwise_wgrad(x, cot_b, k)),
+                   time_ms(lambda: k4._reference_wgrad(x, cot_b, k), iters=5, warmup=1),
+                   t_wl, t_bw)
+        log("  wgrad, cold L2: kernel {:.4f} ms, plain {:.4f} ms, library {:.4f} ms, "
+            "bound {:.4f} ms ({})".format(*times_w, by_w))
+        for key, t, t_w in zip(keys, times, times_w):
+            total[key] += sites * t
+            total_w[key] += sites * t_w
+        share[by] += sites * t_b
+        share_w[by_w] += sites * t_bw
+        del x, cot, cot_b
+    for name, tot in (("K4 forward or dgrad", total), ("K4 wgrad", total_w)):
+        log("{} over the 12 sites: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            "{library_ms:.4f} ms, bound {bound_ms:.4f} ms".format(name, **tot))
+    # times summed over the 12 stride-1 sites of one EfficientNet-B0 forward
+    # (depthwise_conv) or backward (depthwise_wgrad)
+    per = "12 stride-1 sites of one EfficientNet-B0 {} at batch 128, 224x224"
+    return [{"name": "depthwise_conv", "route": "cuda",
+             "source": "vince_tpu_torch/csrc/depthwise_conv.cu",
+             "replaces": "vince_tpu/ops/pallas/depthwise_kernel.py:127",
+             "max_abs_err": max(errs), **total, "bound_by": max(share, key=share.get),
+             "per": per.format("forward"), "check": "ok"},
+            {"name": "depthwise_wgrad", "route": "cuda",
+             "source": "vince_tpu_torch/csrc/depthwise_conv.cu",
+             "replaces": "vince_tpu/ops/pallas/depthwise_kernel.py:156",
+             "note": "_wgrad there is plain XLA beside the TPU kernel, not a pallas_call",
+             "max_abs_err": max(errs_w), **total_w, "bound_by": max(share_w, key=share_w.get),
+             "per": per.format("backward"), "check": "ok"}]
+
+
+# the 3x3 sites of ResNet50 stages 2-4 at batch 128, 224x224: (N, H, W, C, F)
+K3_SHAPES = [(128, 28, 28, 128, 128), (128, 14, 14, 256, 256), (128, 7, 7, 512, 512)]
+
+
+def conv_bn_inputs(g, dev, n, h, w, c, f):
+    y_prev = torch.randn(n, h, w, c, generator=g, device=dev).bfloat16()
+    a = torch.rand(c, generator=g, device=dev) + 0.5
+    b = torch.randn(c, generator=g, device=dev) * 0.1
+    kernel = torch.randn(3, 3, c, f, generator=g, device=dev) * (1.0 / (3.0 * c ** 0.5))
+    return y_prev, a, b, kernel
+
+
+def compare_conv_bn_forward(k3, args):
+    """y within 2 bf16 ulp of the plain version (cuDNN sums the 9C products in
+    another order, so a value now and then rounds to the neighbouring bf16),
+    plus 1e-3 of the largest entry where values cancel; s1 and s2, which
+    inherit those flips, within 1e-3; and the sums equal to the kernel's own
+    stored y summed in float64, to 1e-4 (f32 sums in a fixed order)."""
+    got = k3.affine_conv3x3_stats_forward(*args)
+    ref = k3._reference(args[0], args[1], args[2], args[3].bfloat16())
+    errs = [compare("y", got[0], ref[0], 1.6e-2, 1e-3),
+            compare("s1", got[1], ref[1], 1e-3, 1e-3),
+            compare("s2", got[2], ref[2], 1e-3, 1e-5)]
+    own = got[0].double()
+    compare("s1 vs own y", got[1], own.sum(dim=(0, 1, 2)), 1e-4, 1e-5)
+    compare("s2 vs own y", got[2], own.square().sum(dim=(0, 1, 2)), 1e-4, 1e-6)
+    return errs, got
+
+
+def check_affine_conv3x3_stats(dev):
+    from vince_tpu_torch.ops.kernels import conv_bn_kernel as k3
+    from vince_tpu_torch.ops.kernels import plain_versions
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    errs, ms, plain_ms, library_ms, bound_ms = [], 0.0, 0.0, 0.0, 0.0
+    bound_share = {"bytes": 0.0, "operations": 0.0}
+    for n, h, w, c, f in K3_SHAPES:
+        log(f"K3 affine_conv3x3_stats: y_prev [{n},{h},{w},{c}] bf16, kernel [3,3,{c},{f}]")
+        args = conv_bn_inputs(g, dev, n, h, w, c, f)
+        e, got = compare_conv_bn_forward(k3, args)
+        errs += e
+        cot = [torch.randn(t.shape, generator=g, device=dev) for t in got]
+        cot[2] = cot[2] * 0.1
+
+        def grads():
+            ins = [t.clone().requires_grad_(True) for t in args]
+            outs = k3.affine_conv3x3_stats(*ins)
+            sum((o.float() * c_).sum() for o, c_ in zip(outs, cot)).backward()
+            return [t.grad for t in ins]
+
+        # the backward is the same PyTorch code on both sides, fed each side's
+        # own stored y (its 2 y g_s2 term): 2 bf16 ulp plus 2e-3 of the largest entry
+        gk = grads()
+        with plain_versions():
+            gp = grads()
+        for name, x, r in zip(("dy_prev", "da", "db", "dk"), gk, gp):
+            errs.append(compare(name, x, r, 1.6e-2, 2e-3))
+
+        y_prev, a, b, kernel = args
+        kb = kernel.bfloat16()
+        wl = kb.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+        def library():
+            xh = torch.relu(torch.addcmul(b, y_prev, a)).bfloat16()
+            y = torch.nn.functional.conv2d(xh.permute(0, 3, 1, 2), wl, padding=1)
+            return y, y.sum(dim=(0, 2, 3), dtype=torch.float32), \
+                y.float().square().sum(dim=(0, 2, 3))
+
+        t_k = time_ms(lambda: k3.affine_conv3x3_stats_forward(*args))
+        t_p = time_ms(lambda: k3._reference(y_prev, a, b, kb))
+        t_l = time_ms(library)
+        pixels = n * h * w
+        t_b, by = bound(2 * pixels * (c + f) + 2 * 9 * c * f + 8 * c + 8 * f,
+                        2 * 9 * pixels * c * f, BF16_FLOPS)
+        log(f"  times (cold L2): kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library "
+            f"{t_l:.4f} ms, bound {t_b:.4f} ms ({by})")
+        ms, plain_ms, library_ms, bound_ms = ms + t_k, plain_ms + t_p, library_ms + t_l, bound_ms + t_b
+        bound_share[by] += t_b
+    bound_by = max(bound_share, key=bound_share.get)
+    log(f"K3 over its three shapes: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    # a stand-alone op, as in the JAX package: no model calls it, so no train
+    # phase launches it (run_conv_bn_op drives it as a path of its own); times
+    # summed over one call at each of the three shapes
+    return {"name": "affine_conv3x3_stats", "route": "cuda",
+            "source": "vince_tpu_torch/csrc/affine_conv3x3_stats.cu",
+            "replaces": "vince_tpu/ops/pallas/conv_bn_kernel.py:134",
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "per": "one call at each 3x3 shape of ResNet50 stages 2-4 at batch 128, 224x224",
+            "check": "ok"}
+
+
 def check_other_shapes(dev):
-    """Shapes off the main path, forward only: ragged B, K and D for K1, which
-    masks them; rows that are not a multiple of the block and C that is not a
-    power of two for K2."""
+    """Shapes off the main path: ragged B, K and D for K1, which masks them;
+    rows that are not a multiple of the block and C that is not a power of two
+    for K2, and a bottleneck wider than K2 takes; odd N, H != W, C % 8 != 0, odd
+    C and f32 for K4 (forward, dx and dw); ragged tiles, two column tiles and F
+    that is no multiple of 8 for K3."""
+    from vince_tpu_torch.models.resnet import Bottleneck
+    from vince_tpu_torch.ops.kernels import conv_bn_kernel as k3
+    from vince_tpu_torch.ops.kernels import depthwise_kernel as k4
     from vince_tpu_torch.ops.kernels import folded_dot_kernel as k2
     from vince_tpu_torch.ops.kernels import infonce_kernel as k1
+    from vince_tpu_torch.ops.kernels import plain_versions
 
     g = torch.Generator(device=dev).manual_seed(2)
     for b, k, d in [(37, 1000, 72)]:
@@ -236,6 +442,40 @@ def check_other_shapes(dev):
         compare("out", got[0], ref[0], 1.6e-2, 1e-3)
         compare("s1", got[1], ref[1], 1e-4, 1e-6)
         compare("s2", got[2], ref[2], 1e-4, 1e-6)
+    # stage 4 of a ResNet50 of four times the width: C = 2048 > 1024, so the
+    # module takes the unfused chain instead of raising in K2's wrapper
+    log("Bottleneck with C = 2048 (wider than K2 takes), through the module")
+    block = Bottleneck(256, 2048, downsample=True, fold=True, fold_kernel=True,
+                       dtype=torch.bfloat16)
+    for m in block.modules():
+        if m is not block and hasattr(m, "reset_parameters"):
+            m.reset_parameters(torch.Generator().manual_seed(0))
+    before = k2.affine_relu_dot_moments.launches
+    out = block.to(dev).train()(torch.randn(2, 8, 8, 256, generator=g, device=dev).bfloat16())
+    if k2.affine_relu_dot_moments.launches != before or not bool(torch.isfinite(out).all()):
+        fail("the wide bottleneck launched K2 or gave non-finite values")
+    for n, h, w, c, k, dtype in [(2, 16, 16, 32, 3, torch.bfloat16),
+                                 (2, 12, 12, 144, 3, torch.bfloat16),
+                                 (4, 9, 9, 240, 5, torch.bfloat16),
+                                 (3, 7, 5, 50, 5, torch.bfloat16),
+                                 (2, 6, 5, 51, 3, torch.bfloat16),
+                                 (3, 20, 9, 24, 5, torch.float32),
+                                 (2, 19, 40, 12, 3, torch.float32)]:
+        log(f"K4 at x [{n},{h},{w},{c}] {str(dtype).split('.')[-1]}, k={k}")
+        x = torch.randn(n, h, w, c, generator=g, device=dev).to(dtype)
+        wt = torch.randn(k, k, 1, c, generator=g, device=dev) * 0.2
+        cot = torch.randn(n, h, w, c, generator=g, device=dev)
+        compare("out", k4.depthwise_conv_forward(x, wt), k4._reference(x, wt.to(dtype)), 0, 0)
+        dx_k, dw_k = depthwise_grads(k4, x, wt, cot)
+        with plain_versions():
+            dx_p, dw_p = depthwise_grads(k4, x, wt, cot)
+        compare("dx", dx_k, dx_p, 0, 0)
+        # f32 sums in another order, then (bf16) one rounding: one ulp of the type
+        bf16 = dtype == torch.bfloat16
+        compare("dw", dw_k, dw_p, 8e-3 if bf16 else 1e-4, 1e-3 if bf16 else 1e-4)
+    for n, h, w, c, f in [(3, 10, 6, 128, 256), (2, 5, 33, 128, 20), (1, 40, 3, 256, 136)]:
+        log(f"K3 at y_prev [{n},{h},{w},{c}], kernel [3,3,{c},{f}]")
+        compare_conv_bn_forward(k3, conv_bn_inputs(g, dev, n, h, w, c, f))
 
 
 def profile_step(step, state, batch, path):
@@ -264,30 +504,54 @@ def profile_step(step, state, batch, path):
     log(f"  profile: {wall:.3f} ms wall, {busy_us / 1e3:.3f} ms device busy, "
         f"busy share {busy_us / 1e3 / wall:.3f}, {len(spans)} kernels; table in {path}")
     for e in prof.key_averages():  # the port's own kernels
-        own = re.search(r"(ardm|qlse)_\w+", e.key)
+        own = re.search(r"(ardm|qlse|acs|dw)_\w+", e.key)
         if own and e.device_type == torch.autograd.DeviceType.CUDA:
             log(f"    {own.group(0)}: {e.count} launches, "
                 f"{e.self_device_time_total / 1e3:.3f} ms")
 
 
-def run_train(dev, steps=5, warmup=2, profile_path=None):
+# the two train phases: the backbone's options, what the log calls them, and
+# each kernel's launches per step
+TRAIN_PHASES = {
+    "ResNet50": dict(
+        options=dict(fold_kernel=True), label="fused InfoNCE + fold kernel",
+        per_step={"queue_logsumexp": 1, "affine_relu_dot_moments": 26, "depthwise_conv": 0,
+                  "depthwise_wgrad": 0},
+        why="1 K1 and 2 x 13 K2 per step"),
+    "EfficientNetB0": dict(
+        options=dict(dw_kind="kernel", se_kind="mul"),
+        label="fused InfoNCE + depthwise kernel",
+        per_step={"queue_logsumexp": 1, "affine_relu_dot_moments": 0, "depthwise_conv": 36,
+                  "depthwise_wgrad": 12},
+        why="1 K1, 12 sites x (key forward + query forward + query dgrad) K4 and 12 K4 wgrad "
+            "per step"),
+}
+
+
+def run_train(dev, backbone, steps=5, warmup=2, profile_path=None):
     from vince_tpu_torch.ops.kernels import plain_versions
+    from vince_tpu_torch.ops.kernels.conv_bn_kernel import affine_conv3x3_stats
+    from vince_tpu_torch.ops.kernels.depthwise_kernel import depthwise_conv, depthwise_wgrad
     from vince_tpu_torch.ops.kernels.folded_dot_kernel import affine_relu_dot_moments
     from vince_tpu_torch.ops.kernels.infonce_kernel import queue_logsumexp
     from vince_tpu_torch.solvers.vince_step import (
         SourceSpec, VinceConfig, build_vince_optimizer, init_vince_state, make_train_step_fn)
 
+    phase = TRAIN_PHASES[backbone]
+    wrappers = {"queue_logsumexp": queue_logsumexp,
+                "affine_relu_dot_moments": affine_relu_dot_moments,
+                "depthwise_conv": depthwise_conv, "depthwise_wgrad": depthwise_wgrad}
     batch_size, canvas = 128, 256
     cfg = VinceConfig(
         sources=(SourceSpec("YT", batch_size=batch_size, num_frames=4,
                             transform="StandardVideoTransform", source_id=1),),
-        backbone="ResNet50", embed_size=128, image_size=224, queue_size=65536,
+        backbone=backbone, embed_size=128, image_size=224, queue_size=65536,
         temperature=0.07, momentum=0.999, compute_dtype=torch.bfloat16, shuffle_bn=True,
         bn_fold="expand", jitter_order="torchvision", use_fused_infonce=True,
-        fold_kernel=True)
+        **phase["options"])
     opt = build_vince_optimizer(0.03)
-    log("train: ResNet50 b=128 (32 videos x 4 frames) 224x224 from 256x256 uint8, "
-        "q=65536, embed 128, bf16, fused InfoNCE + fold kernel, SGD lr 0.03")
+    log(f"train: {backbone} b=128 (32 videos x 4 frames) 224x224 from 256x256 uint8, "
+        f"q=65536, embed 128, bf16, {phase['label']}, SGD lr 0.03")
     state = init_vince_state(0, cfg, opt, device=dev)
     step = make_train_step_fn(cfg, opt)
     host = np.random.RandomState(0).randint(0, 256, (batch_size, canvas, canvas, 3), np.uint8)
@@ -299,8 +563,8 @@ def run_train(dev, steps=5, warmup=2, profile_path=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
 
-    queue_logsumexp.launches = 0
-    affine_relu_dot_moments.launches = 0
+    for w in (*wrappers.values(), affine_conv3x3_stats):
+        w.launches = w.plain_calls = 0
     losses, step_ms = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -308,8 +572,8 @@ def run_train(dev, steps=5, warmup=2, profile_path=None):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(metrics["loss/total_loss"])
-    launches = {"queue_logsumexp": queue_logsumexp.launches,
-                "affine_relu_dot_moments": affine_relu_dot_moments.launches}
+    launches = {name: w.launches for name, w in wrappers.items()}
+    plain_calls = sum(w.plain_calls for w in wrappers.values())
     losses = [float(x) for x in losses]
     for i, loss in enumerate(losses):
         log(f"  step {i}: loss {loss:.6f}")
@@ -317,19 +581,23 @@ def run_train(dev, steps=5, warmup=2, profile_path=None):
     log(f"  {ms_step:.3f} ms/step (median of {steps}; each: "
         f"{', '.join(f'{t:.3f}' for t in step_ms)}), {batch_size / ms_step * 1e3:.2f} frames/s, "
         f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
-    log(f"  launches in {steps} steps: {launches}")
+    log(f"  launches in {steps} steps: {launches}; plain calls: {plain_calls}")
     if not all(math.isfinite(x) for x in losses):
         fail("non-finite loss")
-    expected = {"queue_logsumexp": steps, "affine_relu_dot_moments": 26 * steps}
-    if launches != expected:
-        fail(f"launch counts {launches}, expected {expected} (1 K1 and 2 x 13 K2 per step)")
+    expected = {name: n * steps for name, n in phase["per_step"].items()}
+    if launches != expected or plain_calls != 0:
+        fail(f"launch counts {launches} with {plain_calls} plain calls, expected {expected} "
+             f"and none ({phase['why']})")
     if profile_path:
-        profile_step(step, state, batch, profile_path)
+        root, ext = os.path.splitext(profile_path)
+        profile_step(step, state, batch, f"{root}.{backbone}{ext}")
     qn = state.queue.vectors.norm(dim=-1)
     if not bool(torch.isfinite(qn).all()) or (qn - 1).abs().max().item() > 1e-3:
         fail("queue rows are not unit vectors after the enqueues")
 
-    # one more step from the same state and batch: kernels vs plain versions
+    # one more step from the same state and batch: kernels vs plain versions.
+    # bf16 with sums in another order: loss within 1e-2 relative, weight update
+    # within 5e-2 relative in norm
     log("plain-version check: one step from the same state through the kernels and "
         "through the plain versions")
     s_kernel, s_plain = copy.deepcopy(state), copy.deepcopy(state)
@@ -353,6 +621,32 @@ def run_train(dev, steps=5, warmup=2, profile_path=None):
     return {"ms_per_step": ms_step, "launches": launches}
 
 
+def run_conv_bn_op(dev):
+    """K3's own path: no model calls the op in either package, so its user
+    calls ``affine_conv3x3_stats`` itself. One forward and backward at each of
+    its three shapes, with the counts set to 0 before and read after."""
+    from vince_tpu_torch.ops.kernels.conv_bn_kernel import affine_conv3x3_stats
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    affine_conv3x3_stats.launches = affine_conv3x3_stats.plain_calls = 0
+    log("stand-alone op: affine_conv3x3_stats forward and backward at its three shapes")
+    for shape in K3_SHAPES:
+        ins = [t.requires_grad_(True) for t in conv_bn_inputs(g, dev, *shape)]
+        y, s1, s2 = affine_conv3x3_stats(*ins)
+        n = y[..., 0].numel()
+        var = s2 / n - (s1 / n) ** 2  # what a following BatchNorm would take from the sums
+        (y.float().square().mean() + var.mean()).backward()
+        if not all(bool(torch.isfinite(t).all()) for t in (y, s1, s2, *(i.grad for i in ins))):
+            fail(f"affine_conv3x3_stats gave non-finite values at {shape}")
+        log(f"  {shape}: mean y^2 {y.float().square().mean().item():.4f}, mean batch "
+            f"variance {var.mean().item():.4f}")
+    launches, plain = affine_conv3x3_stats.launches, affine_conv3x3_stats.plain_calls
+    if launches != len(K3_SHAPES) or plain != 0:
+        fail(f"affine_conv3x3_stats: {launches} launches and {plain} plain calls, expected "
+             f"{len(K3_SHAPES)} and none")
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--kernels-only", action="store_true",
@@ -360,8 +654,9 @@ def main():
     parser.add_argument("--ptxas", action="store_true",
                         help="print ptxas register and shared-memory use")
     parser.add_argument("--profile", metavar="PATH",
-                        help="after the timed steps, trace one step and write the "
-                             "device-time table to PATH")
+                        help="after each phase's timed steps, trace one step and write "
+                             "the device-time table to PATH with the backbone's name "
+                             "before its extension")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -373,15 +668,25 @@ def main():
     card = gpu_name_and_power()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    times = build.build_all(["queue_logsumexp", "affine_relu_dot_moments"], verbose=args.ptxas)
+    times = build.build_all(["queue_logsumexp", "affine_relu_dot_moments", "depthwise_conv",
+                             "affine_conv3x3_stats"], verbose=args.ptxas)
     log(f"build: {time.perf_counter() - t0:.1f} s wall ({times})")
 
-    kernels = [check_queue_logsumexp(dev), check_affine_relu_dot_moments(dev)]
+    kernels = [check_queue_logsumexp(dev), check_affine_relu_dot_moments(dev),
+               check_affine_conv3x3_stats(dev), *check_depthwise_conv(dev)]
     check_other_shapes(dev)
     if not args.kernels_only:
-        train = run_train(dev, profile_path=args.profile)
+        # each path is driven with the counts set to 0 just before its timed
+        # steps and read just after; a kernel's launches are summed over the paths
+        trains = {b: run_train(dev, b, profile_path=args.profile) for b in TRAIN_PHASES}
+        op_launches = run_conv_bn_op(dev)
         for k in kernels:
-            k["launches"] = train["launches"][k["name"]]
+            by_path = {b: t["launches"].get(k["name"], 0) for b, t in trains.items()}
+            if k["name"] == "affine_conv3x3_stats":
+                by_path["stand-alone op"] = op_launches
+            k["launches"] = sum(by_path.values())
+            k["launches_by_path"] = by_path
+        log("ms/step: " + ", ".join(f"{b} {t['ms_per_step']:.3f}" for b, t in trains.items()))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -120,3 +120,48 @@ def test_weight_names_match_the_jax_exporter():
         k for k in exported if not k.endswith("num_batches_tracked")}
     for k, v in loaded.items():
         np.testing.assert_array_equal(v.numpy(), exported[to_reference_name(k)], err_msg=k)
+
+
+def test_bottleneck_wider_than_the_kernel_takes_the_unfused_chain():
+    """C = 1152 > 1024 (stage 4 of a ResNet50 of four times the width has
+    C = 2048): the JAX block runs its fused kernel path, the port's site rule
+    asks K2's ``kernel_supported`` and takes ``folded_dot_bn``, the same math.
+    Output to 1e-4 relative plus 2e-5 of the largest entry, as the narrow
+    ResNet above."""
+    import flax.linen as fnn
+    from vince_tpu.models.resnet import FoldCfg
+    from vince_tpu_torch.models.resnet import _kernel_site_supported
+
+    cin, filters = 64, 1152
+    x = np.random.RandomState(4).rand(2, 8, 8, cin).astype(np.float32)
+    jm = JaxBottleneck(
+        filters=filters, downsample=True,
+        norm=functools.partial(fnn.BatchNorm, use_running_average=False, momentum=0.9,
+                               epsilon=1e-5),
+        fold_cfg=FoldCfg(train=True, momentum=0.9, epsilon=1e-5, dtype=jnp.float32,
+                         axis_name=None, use_kernel=True))
+    variables = jax.device_get(jax.jit(jm.init)({"params": jax.random.PRNGKey(0)},
+                                                jnp.asarray(x)))
+    params = _perturb_scales(variables["params"], np.random.RandomState(5))
+    out, mut = jax.jit(functools.partial(jm.apply, mutable=["batch_stats"]))(
+        {"params": params, "batch_stats": variables["batch_stats"]}, jnp.asarray(x))
+    out = np.asarray(out)
+
+    tm = Bottleneck(cin, filters, downsample=True, fold=True, fold_kernel=True)
+    arrays = flax_to_state_dict({"backbone": {"layer1_0": params}},
+                                {"backbone": {"layer1_0": variables["batch_stats"]}})
+    tm.load_state_dict({k[len("backbone.layer1.0."):]: torch.from_numpy(np.array(v))
+                        for k, v in arrays.items()})
+    assert not _kernel_site_supported(torch.empty(2, 8, 8, filters), 4 * filters)
+    assert _kernel_site_supported(torch.empty(2, 8, 8, 1024), 4096)
+    before = affine_relu_dot_moments.plain_calls
+    with torch.no_grad():
+        got = tm.train()(torch.from_numpy(x)).numpy()
+    assert affine_relu_dot_moments.plain_calls == before  # the unfused chain
+    np.testing.assert_allclose(got, out, rtol=1e-4, atol=2e-5 * np.abs(out).max())
+    ref_stats = flax_to_state_dict({"backbone": {"layer1_0": params}},
+                                   {"backbone": {"layer1_0": jax.device_get(mut["batch_stats"])}})
+    for k, v in ref_stats.items():
+        if k.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(tm.state_dict()[k[len("backbone.layer1.0."):]].numpy(), v,
+                                       rtol=1e-4, atol=1e-6, err_msg=k)

@@ -19,7 +19,7 @@ from vince_tpu.utils.schedules import vince_lr_schedule as jax_schedule
 from vince_tpu_torch.ops.kernels.folded_dot_kernel import affine_relu_dot_moments
 from vince_tpu_torch.ops.kernels.infonce_kernel import queue_logsumexp
 from vince_tpu_torch.solvers import vince_step as tvs
-from vince_tpu_torch.utils.jax_weights import flax_to_state_dict, load_jax_state
+from vince_tpu_torch.utils.jax_weights import _find_trace, flax_to_state_dict, load_jax_state
 from vince_tpu_torch.utils.schedules import vince_lr_schedule
 
 BATCH, FRAMES, SIZE, QUEUE, EMBED = 8, 4, 64, 64, 128
@@ -35,10 +35,10 @@ def _source():
                 transform="StandardVideoTransform", source_id=1)
 
 
-def _common():
-    return dict(backbone="ResNet50", embed_size=EMBED, image_size=SIZE, queue_size=QUEUE,
-                temperature=0.07, momentum=0.999, shuffle_bn=True, bn_fold="expand",
-                use_fused_infonce=True, fold_kernel=True)
+def _common(**backbone_options):
+    return dict(embed_size=EMBED, image_size=SIZE, queue_size=QUEUE, temperature=0.07,
+                momentum=0.999, shuffle_bn=True, bn_fold="expand", use_fused_infonce=True,
+                **backbone_options)
 
 
 def _flat(tree, prefix=""):
@@ -51,8 +51,11 @@ def _flat(tree, prefix=""):
     return out
 
 
-@pytest.fixture(scope="module")
-def runs():
+def run_steps(wrappers, jax_options=None, **backbone_options):
+    """Run ``STEPS`` steps of both packages from one state; per step the
+    metrics, weights, statistics and queue of each side, and how often each of
+    ``wrappers`` ran its plain version. ``jax_options`` are config fields of
+    the JAX side only."""
     rng = np.random.RandomState(0)
     images = [(rng.randn(BATCH, SIZE, SIZE, 3).astype(np.float32),
                rng.randn(BATCH, SIZE, SIZE, 3).astype(np.float32)) for _ in range(STEPS)]
@@ -67,8 +70,9 @@ def runs():
                lambda cfg, batch, gen: (batch[0]["data"], batch[0]["queue_data"]))
     mp.setattr(tvs, "make_shuffle_perm", lambda gen, n: torch.from_numpy(perm))
     try:
-        cfg_j = jvs.VinceConfig(sources=(jvs.SourceSpec(**_source()),), stem_kind="s2d",
-                                compute_dtype=jnp.float32, **_common())
+        cfg_j = jvs.VinceConfig(sources=(jvs.SourceSpec(**_source()),),
+                                compute_dtype=jnp.float32,
+                                **{**_common(**backbone_options), **(jax_options or {})})
         opt_j = jvs.build_vince_optimizer(jax_schedule(**SCHEDULE))
         mesh = make_mesh(MeshSpec(data_axis_size=1, queue_axis_size=1))
         # jitted: the same state as the eager call, in a third of the time
@@ -77,7 +81,7 @@ def runs():
         step_j = jax.jit(jvs.make_train_step_fn(cfg_j, opt_j, mesh))
 
         cfg_t = tvs.VinceConfig(sources=(tvs.SourceSpec(**_source()),),
-                                compute_dtype=torch.float32, **_common())
+                                compute_dtype=torch.float32, **_common(**backbone_options))
         opt_t = tvs.build_vince_optimizer(vince_lr_schedule(**SCHEDULE))
         state_t = tvs.init_vince_state(0, cfg_t, opt_t, device="cpu")
         load_jax_state(state_t, jax.tree_util.tree_map(np.asarray, jax.device_get(state_j)))
@@ -89,11 +93,10 @@ def runs():
             state_j, m_j = step_j(state_j, ({"data": jnp.asarray(q_img),
                                              "queue_data": jnp.asarray(k_img)},),
                                   jax.random.PRNGKey(1))
-            calls = queue_logsumexp.plain_calls, affine_relu_dot_moments.plain_calls
+            before = [w.plain_calls for w in wrappers]
             state_t, m_t = step_t(state_t, ({"data": torch.from_numpy(q_img),
                                              "queue_data": torch.from_numpy(k_img)},), 0)
-            calls = (queue_logsumexp.plain_calls - calls[0],
-                     affine_relu_dot_moments.plain_calls - calls[1])
+            calls = tuple(w.plain_calls - b for w, b in zip(wrappers, before))
             sj = jax.device_get(state_j)
             results.append(dict(
                 metrics=({k: float(m_t[k]) for k in METRICS},
@@ -108,10 +111,20 @@ def runs():
                         state_t.queue.tail, state_t.queue.total),
                        (np.asarray(sj.queue.vectors), np.asarray(sj.queue.sources),
                         int(sj.queue.tail), int(sj.queue.total))),
+                momentum=({k: state_t.optimizer.state[p]["momentum_buffer"].numpy().copy()
+                           for k, p in state_t.model.named_parameters()},
+                          flax_to_state_dict(jax.tree_util.tree_map(
+                              np.asarray, _find_trace(sj.opt_state)), {})),
                 calls=calls, init=init))
         return results
     finally:
         mp.undo()
+
+
+@pytest.fixture(scope="module")
+def runs():
+    return run_steps((queue_logsumexp, affine_relu_dot_moments), {"stem_kind": "s2d"},
+                     backbone="ResNet50", fold_kernel=True)
 
 
 @pytest.mark.parametrize("step", range(STEPS))
@@ -138,6 +151,20 @@ def test_step_weights_and_batch_stats(runs, step, which):
         if which == "params":
             d_got, d_ref = got[k] - init[k], ref[k] - init[k]
             assert np.linalg.norm(d_got - d_ref) <= 5e-2 * np.linalg.norm(d_ref) + 1e-7, k
+
+
+def check_momentum_buffers(got, ref):
+    """The SGD momentum buffers, tensor by tensor, to 5% in norm (the gradients
+    are f32 sums in another order through the whole backward; 1e-5 covers the
+    buffers whose gradient is zero in exact arithmetic)."""
+    assert set(got) == set(ref)
+    for k in got:
+        assert np.linalg.norm(got[k] - ref[k]) <= 5e-2 * np.linalg.norm(ref[k]) + 1e-5, k
+
+
+@pytest.mark.parametrize("step", range(STEPS))
+def test_step_momentum_buffers(runs, step):
+    check_momentum_buffers(*runs[step]["momentum"])
 
 
 @pytest.mark.parametrize("step", range(STEPS))

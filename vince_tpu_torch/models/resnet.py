@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vince_tpu_torch.ops.kernels.folded_dot_kernel import affine_relu_dot_moments
+from vince_tpu_torch.ops.kernels import folded_dot_kernel
 
 
 def _lecun_normal_(t: torch.Tensor, fan_in: int, generator=None):
@@ -65,13 +65,16 @@ class StemConvS2D(Conv2d):
 class Conv1x1(nn.Module):
     """1×1 convolution as a strided slice and a matmul over channels."""
 
-    def __init__(self, cin: int, cout: int, stride: int = 1):
+    def __init__(self, cin: int, cout: int, stride: int = 1, bias: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin, 1, 1))
+        self.bias = nn.Parameter(torch.empty(cout)) if bias else None
         self.stride = stride
 
     def reset_parameters(self, generator=None):
         _lecun_normal_(self.weight, self.weight.shape[1], generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def matrix(self) -> torch.Tensor:
         """The [Cin, Cout] dot weights."""
@@ -80,7 +83,8 @@ class Conv1x1(nn.Module):
     def forward(self, x):
         if self.stride != 1:
             x = x[:, :: self.stride, :: self.stride, :]
-        return x @ self.matrix().to(x.dtype)
+        y = x @ self.matrix().to(x.dtype)
+        return y if self.bias is None else y + self.bias.to(x.dtype)
 
 
 class BatchNorm(nn.Module):
@@ -173,7 +177,8 @@ def fused_bn_relu_folded_dot(y, in_bn: BatchNorm, conv: Conv1x1, bn: BatchNorm, 
         mu2 = y32.sum(dim=0) / n
         var2 = torch.clamp((y32 * y32).sum(dim=0) / n - mu2 * mu2, min=0.0)
         a2, b2 = _fold_affine(in_bn, mu2, var2)
-        out_raw, s1, s2 = affine_relu_dot_moments(y.reshape(-1, c).to(dtype), a2, b2, w)
+        out_raw, s1, s2 = folded_dot_kernel.affine_relu_dot_moments(
+            y.reshape(-1, c).to(dtype), a2, b2, w)
         a3, b3 = _fold_affine(bn, *_moment_stats(s1, s2, w, n))
         out = out_raw.reshape(*y.shape[:-1], features)
     else:
@@ -188,10 +193,11 @@ def fused_bn_relu_folded_dot(y, in_bn: BatchNorm, conv: Conv1x1, bn: BatchNorm, 
 
 
 def _kernel_site_supported(y, features: int) -> bool:
-    """The JAX rule, unchanged. The CUDA kernel also needs C <= 1024 (ResNet50
-    with num_filters <= 128) and raises on a wider site."""
+    """The JAX rule, and what the CUDA kernel takes (C <= 1024): a wider site,
+    as stage 4 of a ResNet50 of four times the width, takes the unfused
+    ``folded_dot_bn`` chain like every other unsupported site."""
     m = math.prod(y.shape[:-1])
-    return y.shape[-1] % 128 == 0 and features % 128 == 0 and m % 128 == 0
+    return m % 128 == 0 and folded_dot_kernel.kernel_supported(m, y.shape[-1], features)
 
 
 class BasicBlock(nn.Module):

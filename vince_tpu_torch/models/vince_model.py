@@ -19,10 +19,16 @@ VINCE_PARAM_KEYS = ("backbone", "pool", "embedding", "jigsaw")
 
 class VinceEncoder(nn.Module):
     def __init__(self, backbone_name: str = "ResNet18", embed_size: int = 64,
-                 dtype=torch.float32, bn_fold: str = "none", fold_kernel: bool = False):
+                 dtype=torch.float32, bn_fold: str = "none", fold_kernel: bool = False,
+                 dw_kind: str = "conv", se_kind: str = "mul"):
         super().__init__()
-        self.backbone = get_backbone(backbone_name)(
-            dtype=dtype, bn_fold=bn_fold, fold_kernel=fold_kernel)
+        kwargs = {}
+        if "ResNet" in backbone_name:
+            kwargs["fold_kernel"] = fold_kernel  # K2 at the bottleneck sites
+        if "EfficientNet" in backbone_name:
+            kwargs["dw_kind"] = dw_kind  # depthwise emission; "kernel" is K4
+            kwargs["se_kind"] = se_kind
+        self.backbone = get_backbone(backbone_name)(dtype=dtype, bn_fold=bn_fold, **kwargs)
         self.pool = heads.AveragePool()
         self.embedding = heads.ProjectionMLP(self.backbone.output_channels, embed_size)
 

@@ -59,7 +59,9 @@ class VinceConfig:
     compute_dtype: torch.dtype = torch.float32
     use_fused_infonce: bool = False  # K1 for the queue sweep
     bn_fold: str = "expand"
-    fold_kernel: bool = False  # K2 at the supported bottleneck sites
+    fold_kernel: bool = False  # K2 at the supported bottleneck sites (ResNet)
+    dw_kind: str = "conv"  # EfficientNet depthwise emission: conv, tap or kernel (K4)
+    se_kind: str = "mul"  # EfficientNet squeeze-excite gate: mul or fold
     jitter_order: str = "torchvision"
 
     @property
@@ -108,7 +110,8 @@ def build_vince_optimizer(lr_schedule) -> OptimizerSpec:
 
 def build_encoder(cfg: VinceConfig) -> VinceEncoder:
     return VinceEncoder(cfg.backbone, cfg.embed_size, dtype=cfg.compute_dtype,
-                        bn_fold=cfg.bn_fold, fold_kernel=cfg.fold_kernel)
+                        bn_fold=cfg.bn_fold, fold_kernel=cfg.fold_kernel,
+                        dw_kind=cfg.dw_kind, se_kind=cfg.se_kind)
 
 
 def init_vince_state(seed: int, cfg: VinceConfig, optimizer: OptimizerSpec,

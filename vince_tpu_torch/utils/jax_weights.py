@@ -15,6 +15,12 @@ import numpy as np
 import torch
 
 _BLOCK_MODULES = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
+# EfficientNet: flax module names -> efficientnet_pytorch's
+_EFFNET_TOP = {"stem_conv": "_conv_stem", "stem_bn": "_bn0",
+               "head_conv": "_conv_head", "head_bn": "_bn1"}
+_MBCONV_MODULES = {"expand_conv": "_expand_conv", "expand_bn": "_bn0",
+                   "depthwise_conv": "_depthwise_conv", "depthwise_bn": "_bn1",
+                   "project_conv": "_project_conv", "project_bn": "_bn2"}
 
 
 def _emit(out: Dict, name: str, leafs: Dict, stats) -> None:
@@ -34,16 +40,28 @@ def _emit(out: Dict, name: str, leafs: Dict, stats) -> None:
 
 
 def flax_to_state_dict(params: Dict, batch_stats: Dict) -> Dict[str, np.ndarray]:
-    """``VinceEncoder`` flax trees → the port's ``state_dict`` names and layouts."""
+    """``VinceEncoder`` flax trees (ResNet or EfficientNet backbone) → the
+    port's ``state_dict`` names and layouts."""
     out: Dict[str, np.ndarray] = {}
     stats = batch_stats.get("backbone", {})
     for name, p in params["backbone"].items():
+        s = stats.get(name, {})
         m = re.match(r"layer(\d+)_(\d+)$", name)
+        mb = re.match(r"block_(\d+)$", name)
         if m:
-            s = stats.get(name, {})
             for mod, leafs in p.items():
                 _emit(out, f"backbone.layer{m[1]}.{m[2]}.{_BLOCK_MODULES.get(mod, mod)}",
                       leafs, s.get(mod))
+        elif mb:
+            for mod, leafs in p.items():
+                if mod == "se":  # two biased 1×1 convs, no statistics
+                    for se_mod in ("reduce", "expand"):
+                        _emit(out, f"backbone._blocks.{mb[1]}._se_{se_mod}", leafs[se_mod], None)
+                else:
+                    _emit(out, f"backbone._blocks.{mb[1]}.{_MBCONV_MODULES[mod]}",
+                          leafs, s.get(mod))
+        elif name in _EFFNET_TOP:
+            _emit(out, f"backbone.{_EFFNET_TOP[name]}", p, stats.get(name))
         else:
             _emit(out, f"backbone.{name}", p, stats.get(name))
     for name, leafs in params.get("embedding", {}).items():
