@@ -244,7 +244,7 @@ def check_depthwise_conv(dev):
     from vince_tpu_torch.ops.kernels import plain_versions
 
     g = torch.Generator(device=dev).manual_seed(3)
-    errs, errs_w = [], []
+    errs, errs_w, per_site, per_site_w = [], [], [], []
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
     total, total_w = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0.0)
     share, share_w = ({"bytes": 0.0, "operations": 0.0} for _ in range(2))
@@ -254,7 +254,7 @@ def check_depthwise_conv(dev):
         w = torch.randn(k, k, 1, c, generator=g, device=dev) * 0.2
         wb = w.bfloat16()
         cot = torch.randn(n, h, wd, c, generator=g, device=dev).bfloat16().float()
-        # no fma in the kernel and the plain version's order of sums: bit-equal
+        # the plain version's roundings in its order of taps: bit-equal
         errs.append(compare("out", k4.depthwise_conv_forward(x, wb), k4._reference(x, wb), 0, 0))
         dx_k, dw_k = depthwise_grads(k4, x, w, cot)
         with plain_versions():
@@ -265,8 +265,10 @@ def check_depthwise_conv(dev):
         # entry where a sum cancels; the f32 sums themselves to 1e-4 of it
         errs_w.append(compare("dw", dw_k, dw_p, 8e-3, 1e-3))
         cot_b = cot.bfloat16()
-        errs_w.append(compare("dw in f32", k4.depthwise_wgrad(x, cot_b, k),
-                              k4._reference_wgrad(x, cot_b, k), 1e-4, 1e-4))
+        dw_f32 = k4.depthwise_wgrad(x, cot_b, k)
+        errs_w.append(compare("dw in f32", dw_f32, k4._reference_wgrad(x, cot_b, k), 1e-4, 1e-4))
+        if not torch.equal(dw_f32, k4.depthwise_wgrad(x, cot_b, k)):
+            fail("dw differs between two runs on the same inputs")
         # and against autograd through the library convolution, which rounds
         # elsewhere: 2 bf16 ulp plus 2e-2 of the largest entry
         xl, wl = x.clone().requires_grad_(True), wb.clone().requires_grad_(True)
@@ -284,14 +286,20 @@ def check_depthwise_conv(dev):
                  time_ms(lambda: k4._reference(x, wb), iters=5, warmup=1),
                  time_ms(lambda: library_depthwise(x, wb)), t_b)
         log("  forward, cold L2: kernel {:.4f} ms, plain {:.4f} ms, library {:.4f} ms, "
-            "bound {:.4f} ms ({})".format(*times, by))
+            "bound {:.4f} ms ({}), kernel/library {:.3f}".format(*times, by, times[0] / times[2]))
         # wgrad: x and g in, k*k*C f32 out
         t_bw, by_w = bound(2 * 2 * elems + 4 * k * k * c, 2 * k * k * elems, F32_FLOPS)
         times_w = (time_ms(lambda: k4.depthwise_wgrad(x, cot_b, k)),
                    time_ms(lambda: k4._reference_wgrad(x, cot_b, k), iters=5, warmup=1),
                    t_wl, t_bw)
         log("  wgrad, cold L2: kernel {:.4f} ms, plain {:.4f} ms, library {:.4f} ms, "
-            "bound {:.4f} ms ({})".format(*times_w, by_w))
+            "bound {:.4f} ms ({}), kernel/library {:.3f}".format(*times_w, by_w,
+                                                                 times_w[0] / times_w[2]))
+        for kind, is_wgrad in (("forward", False), ("wgrad", True)):
+            log(f"  {kind} tile: {k4._tiling(n, h, wd, c, k, 2, is_wgrad)}")
+        shape = f"[{n},{h},{wd},{c}] k={k}"
+        per_site.append(dict(zip(keys, times), shape=shape, sites=sites))
+        per_site_w.append(dict(zip(keys, times_w), shape=shape, sites=sites))
         for key, t, t_w in zip(keys, times, times_w):
             total[key] += sites * t
             total_w[key] += sites * t_w
@@ -300,7 +308,9 @@ def check_depthwise_conv(dev):
         del x, cot, cot_b
     for name, tot in (("K4 forward or dgrad", total), ("K4 wgrad", total_w)):
         log("{} over the 12 sites: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            "{library_ms:.4f} ms, bound {bound_ms:.4f} ms".format(name, **tot))
+            "{library_ms:.4f} ms, bound {bound_ms:.4f} ms".format(name, **tot)
+            + ", kernel/library {:.3f}, kernel/bound {:.3f}".format(
+                tot["ms"] / tot["library_ms"], tot["ms"] / tot["bound_ms"]))
     # times summed over the 12 stride-1 sites of one EfficientNet-B0 forward
     # (depthwise_conv) or backward (depthwise_wgrad)
     per = "12 stride-1 sites of one EfficientNet-B0 {} at batch 128, 224x224"
@@ -308,13 +318,13 @@ def check_depthwise_conv(dev):
              "source": "vince_tpu_torch/csrc/depthwise_conv.cu",
              "replaces": "vince_tpu/ops/pallas/depthwise_kernel.py:127",
              "max_abs_err": max(errs), **total, "bound_by": max(share, key=share.get),
-             "per": per.format("forward"), "check": "ok"},
+             "per": per.format("forward"), "per_site": per_site, "check": "ok"},
             {"name": "depthwise_wgrad", "route": "cuda",
              "source": "vince_tpu_torch/csrc/depthwise_conv.cu",
              "replaces": "vince_tpu/ops/pallas/depthwise_kernel.py:156",
              "note": "_wgrad there is plain XLA beside the TPU kernel, not a pallas_call",
              "max_abs_err": max(errs_w), **total_w, "bound_by": max(share_w, key=share_w.get),
-             "per": per.format("backward"), "check": "ok"}]
+             "per": per.format("backward"), "per_site": per_site_w, "check": "ok"}]
 
 
 # the 3x3 sites of ResNet50 stages 2-4 at batch 128, 224x224: (N, H, W, C, F)
@@ -414,8 +424,8 @@ def check_other_shapes(dev):
     """Shapes off the main path: ragged B, K and D for K1, which masks them;
     rows that are not a multiple of the block and C that is not a power of two
     for K2, and a bottleneck wider than K2 takes; odd N, H != W, C % 8 != 0, odd
-    C and f32 for K4 (forward, dx and dw); ragged tiles, two column tiles and F
-    that is no multiple of 8 for K3."""
+    C, f32 and shapes that cross the tile's edges for K4 (forward, dx and dw);
+    ragged tiles, two column tiles and F that is no multiple of 8 for K3."""
     from vince_tpu_torch.models.resnet import Bottleneck
     from vince_tpu_torch.ops.kernels import conv_bn_kernel as k3
     from vince_tpu_torch.ops.kernels import depthwise_kernel as k4
@@ -460,7 +470,19 @@ def check_other_shapes(dev):
                                  (3, 7, 5, 50, 5, torch.bfloat16),
                                  (2, 6, 5, 51, 3, torch.bfloat16),
                                  (3, 20, 9, 24, 5, torch.float32),
-                                 (2, 19, 40, 12, 3, torch.float32)]:
+                                 (2, 19, 40, 12, 3, torch.float32),
+                                 # across the tile's edges: W no multiple of the columns
+                                 # per thread, one vector of channels, a ragged last
+                                 # chunk, N no multiple of the images per CTA (nor of
+                                 # those side by side), fewer rows than the ring holds,
+                                 # one channel a thread over two column tiles
+                                 (3, 9, 13, 8, 3, torch.bfloat16),
+                                 (5, 9, 9, 72, 5, torch.bfloat16),
+                                 (11, 7, 7, 1152, 5, torch.bfloat16),
+                                 (37, 14, 14, 200, 3, torch.bfloat16),
+                                 (2, 3, 70, 36, 3, torch.bfloat16),
+                                 (3, 5, 6, 20, 5, torch.float32),
+                                 (1, 5, 300, 7, 5, torch.bfloat16)]:
         log(f"K4 at x [{n},{h},{w},{c}] {str(dtype).split('.')[-1]}, k={k}")
         x = torch.randn(n, h, w, c, generator=g, device=dev).to(dtype)
         wt = torch.randn(k, k, 1, c, generator=g, device=dev) * 0.2

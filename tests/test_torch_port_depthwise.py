@@ -13,6 +13,11 @@ from vince_tpu_torch.ops.kernels import depthwise_kernel as tk
 
 # the shapes of tests/test_depthwise_kernel.py: (N, H, W, C, k)
 SHAPES = [(2, 16, 16, 32, 3), (2, 12, 12, 144, 3), (4, 9, 9, 240, 5), (2, 7, 7, 256, 3)]
+# and shapes that cross the CUDA kernels' tile edges (chip_smoke.py checks them
+# on the card): W no multiple of the columns per thread, one 16-byte vector of
+# channels, a ragged last chunk, odd N, fewer rows than the ring holds
+SHAPES += [(3, 9, 13, 8, 3), (5, 9, 9, 72, 5), (11, 7, 7, 72, 5), (5, 14, 14, 200, 3),
+           (2, 3, 70, 36, 3), (3, 5, 6, 20, 5)]
 
 
 def _data(n, h, wd, c, k, seed=0):
