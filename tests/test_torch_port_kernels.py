@@ -88,6 +88,41 @@ def test_affine_relu_dot_moments_backward_matches_jax_grad(arg):
     np.testing.assert_allclose(ts[i].grad.numpy(), np.asarray(g_jax[i]), rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("m,c,f,ok", [(256, 1152, 256, True), (128, 2048, 8192, True),
+                                      (100352, 128, 512, True), (256, 64, 256, False),
+                                      (256, 128, 200, False), (0, 128, 128, False)])
+def test_kernel_supported_takes_any_c_that_is_a_multiple_of_128(m, c, f, ok):
+    """No cap on C any more (the JAX kernel has none): above 512 channels the
+    CUDA kernel rebuilds x̂ for each chunk of F."""
+    assert tk2.kernel_supported(m, c, f) is ok
+
+
+@pytest.mark.parametrize("output", ["out", "s1", "s2"])
+def test_affine_relu_dot_moments_plain_matches_jax_reference_at_c_1152(output):
+    y, a, b, w = _fold_data(m=128, c=1152, f=128, seed=1)
+    ref = dict(zip(("out", "s1", "s2"), jk2._reference(*map(jnp.asarray, (y, a, b, w)))))
+    got = dict(zip(("out", "s1", "s2"), tk2.affine_relu_dot_moments_forward(
+        *map(torch.from_numpy, (y, a, b, w)))))
+    np.testing.assert_allclose(got[output].numpy(), np.asarray(ref[output]), rtol=1e-5, atol=1e-4)
+
+
+def test_affine_relu_dot_moments_backward_matches_jax_grad_at_c_1152():
+    """All four gradients at C = 1152 against ``jax.grad``, the loss of the
+    test above."""
+    y, a, b, w = _fold_data(m=128, c=1152, f=128, seed=2)
+
+    def loss_jax(*xs):
+        out, s1, s2 = jk2.affine_relu_dot_moments(*xs, False)
+        return jnp.sum(out * 0.3) + jnp.sum(s1 * 0.7) + jnp.sum(s2 * 0.01)
+
+    g_jax = jax.grad(loss_jax, argnums=(0, 1, 2, 3))(*map(jnp.asarray, (y, a, b, w)))
+    ts = [torch.from_numpy(x).requires_grad_(True) for x in (y, a, b, w)]
+    out, s1, s2 = tk2.affine_relu_dot_moments(*ts)
+    ((out * 0.3).sum() + (s1 * 0.7).sum() + (s2 * 0.01).sum()).backward()
+    for t, g in zip(ts, g_jax):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), rtol=1e-4, atol=1e-5)
+
+
 def test_cuda_tensor_never_takes_the_plain_version_silently():
     """On a CPU tensor the wrapper runs the plain version; ``plain_versions``
     is the only other way to reach it."""

@@ -122,14 +122,15 @@ def test_weight_names_match_the_jax_exporter():
         np.testing.assert_array_equal(v.numpy(), exported[to_reference_name(k)], err_msg=k)
 
 
-def test_bottleneck_wider_than_the_kernel_takes_the_unfused_chain():
-    """C = 1152 > 1024 (stage 4 of a ResNet50 of four times the width has
-    C = 2048): the JAX block runs its fused kernel path, the port's site rule
-    asks K2's ``kernel_supported`` and takes ``folded_dot_bn``, the same math.
-    Output to 1e-4 relative plus 2e-5 of the largest entry, as the narrow
-    ResNet above."""
+def test_bottleneck_wider_than_1024_takes_the_fused_path():
+    """C = 1152 (stage 4 of a ResNet50 of four times the width has C = 2048):
+    the JAX block runs its fused kernel path, and so does the port's, whose
+    site rule now admits what the JAX rule admits: K2 is called once (its
+    plain version, on the CPU). Output to 1e-4 relative plus 2e-5 of the
+    largest entry, as the narrow ResNet above."""
     import flax.linen as fnn
     from vince_tpu.models.resnet import FoldCfg
+    from vince_tpu.models.resnet import _kernel_site_supported as jax_site_supported
     from vince_tpu_torch.models.resnet import _kernel_site_supported
 
     cin, filters = 64, 1152
@@ -152,12 +153,13 @@ def test_bottleneck_wider_than_the_kernel_takes_the_unfused_chain():
                                 {"backbone": {"layer1_0": variables["batch_stats"]}})
     tm.load_state_dict({k[len("backbone.layer1.0."):]: torch.from_numpy(np.array(v))
                         for k, v in arrays.items()})
-    assert not _kernel_site_supported(torch.empty(2, 8, 8, filters), 4 * filters)
-    assert _kernel_site_supported(torch.empty(2, 8, 8, 1024), 4096)
+    for c in (filters, 2048, 1024):
+        assert _kernel_site_supported(torch.empty(2, 8, 8, c), 4 * c)
+        assert jax_site_supported(jnp.zeros((2, 8, 8, c)), 4 * c)
     before = affine_relu_dot_moments.plain_calls
     with torch.no_grad():
         got = tm.train()(torch.from_numpy(x)).numpy()
-    assert affine_relu_dot_moments.plain_calls == before  # the unfused chain
+    assert affine_relu_dot_moments.plain_calls == before + 1  # the fused path
     np.testing.assert_allclose(got, out, rtol=1e-4, atol=2e-5 * np.abs(out).max())
     ref_stats = flax_to_state_dict({"backbone": {"layer1_0": params}},
                                    {"backbone": {"layer1_0": jax.device_get(mut["batch_stats"])}})

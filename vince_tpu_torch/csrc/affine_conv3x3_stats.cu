@@ -3,8 +3,8 @@
 //
 // Replaces the TPU kernel vince_tpu/ops/pallas/conv_bn_kernel.py
 // (_pallas_impl / _kernel). For y_prev [N, H, W, C] bf16, a, b [C] f32 and the
-// filter [3, 3, C, F] bf16 (given as the matrix [9C, Fp], Fp = F padded with
-// zero columns to a multiple of 128):
+// filter [3, 3, C, F] bf16 (given as the matrix kt [F, 9C], row f holding
+// column (ky * 3 + kx) * C + c):
 //     xh = bf16(relu(a * y_prev + b))      (never written to device memory)
 //     y  = bf16(conv3x3(xh, filter))       stride 1, zero padding 1, f32 sums
 //     s1 = sum_{n,h,w} y                   of the stored (rounded) y, in f32
@@ -14,97 +14,95 @@
 // 2(C + F) bytes is far above the card's ~295 bf16 operations per byte at the
 // ResNet50 sites (C = F >= 128), so the tensor cores set the least time.
 //
-// Design. The TPU kernel takes whole images per grid step and carries s1 and
-// s2 across the sequential grid. Here a CTA owns a tile of `th` rows by `tw`
-// columns of one image and 128 output features. It is an implicit GEMM: for
-// each chunk of 128 input channels the tile's halo, (th+2) x (tw+2) pixels,
-// goes through the affine + ReLU into shared memory once, stored row by row at
-// the padded width pw = tw + 2. An output position p = hl * pw + wl then finds
-// its tap (ky, kx) at halo row p + ky * pw + kx, a constant shift, so each of
-// the nine taps is a plain [positions x 128] @ [128 x 128] product whose A
-// fragments are read from the halo at that shift (WMMA bf16, mma.sync). The
-// two padding columns of every row are computed and thrown away, which keeps
-// the A tile a constant-stride matrix. The filter streams through shared
-// memory in 32-row slabs, three in a cp.async pipeline. The f32 tile is
-// staged in shared memory, rounded to bf16 and stored, and the CTA's column
-// sums of the rounded values go to per-CTA partials; a second kernel adds the
-// partials in a fixed order, so s1 and s2 are bitwise reproducible (no float
-// atomics). C must be a multiple of 128; any N, H, W, F launches (F that is
-// not a multiple of 8 takes scalar stores). wgmma and TMA come later.
+// Design. An implicit GEMM on wgmma. A CTA owns up to 256 output positions
+// (four wgmma tiles of 64 rows; consumer warpgroup w takes tiles w and w + 2)
+// and 128 output features. Its positions are th rows of k images side by side
+// (a small map) or of one column tile of tw columns (a wide one): the halo,
+// th + 2 rows of pw = 1 + k (tw + 1) pixels (a zero column between the images
+// and at each side), goes through the affine + ReLU into shared memory once
+// per chunk of 128 input channels, "chunk-major" (hopper.cuh). An output
+// position p = hl * pw + wl then finds its tap (ky, kx) at halo row
+// p + ky * pw + kx, a constant shift: each tap is a plain [64 x 128] @
+// [128 x 128] product whose A descriptor starts `shift` rows lower, which the
+// unswizzled layout allows for any shift. Positions of a padding column or
+// past the tile are computed and thrown away, which keeps A a constant-stride
+// matrix. A producer warp streams the filter by TMA (128-byte swizzle) in
+// boxes of [128 features, 64 channels of one tap], 18 per channel chunk,
+// through a 4-stage ring of mbarriers, so the consumers never wait on a CTA
+// barrier inside a chunk. The epilogue rounds to bf16, stages each 64 x 128
+// tile in shared memory, stores 16-byte vectors and sums the stored values
+// per feature into per-CTA partials; a second kernel adds the partials in a
+// fixed order, so s1 and s2 are bitwise reproducible (no float atomics). C
+// must be a multiple of 128; any N, H, W, F launches (F that is not a
+// multiple of 8 takes scalar stores; TMA reads filter rows past F as zeros).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
-using namespace nvcuda;
+using namespace hopper;
 
 namespace {
 
-constexpr int THREADS = 256;  // 8 warps
-constexpr int CK = 128;       // input channels per halo chunk
-constexpr int LDA = CK + 16;  // halo row (bf16): 288 bytes, so every row is 32-byte aligned
-constexpr int BN = 128;       // output features per CTA
-constexpr int KSLAB = 32;     // filter rows per shared-memory slab
-constexpr int NSTAGE = 3;     // slabs in flight or in use
-constexpr int WS_LD = BN + 8;
-constexpr int MAX_POS = 128;  // output positions per CTA: 8 row tiles of 16
-constexpr int STAGE_LD = BN + 4;
-constexpr int PHASES = THREADS / (BN / 8);  // row phases of the epilogue
-constexpr int SLABS_PER_CHUNK = 9 * CK / KSLAB;
+constexpr int WG_THREADS = 128;
+constexpr int CONSUMERS = 2;
+constexpr int THREADS = (CONSUMERS + 1) * WG_THREADS;  // + the producer warpgroup
+constexpr int PRODUCER_REGS = 40;   // registers a thread of the producer keeps
+constexpr int CONSUMER_REGS = 232;  // and of the consumers: 2 x 128 x 232 + 128 x 40 <= 64K
+constexpr int TILES = 4;                              // wgmma tiles of 64 positions
+constexpr int MAX_POS = TILES * 64;
+constexpr int CK = 128;  // input channels per halo chunk
+constexpr int BN = 128;  // output features per CTA
+constexpr int BK = 64;   // filter rows (channels of one tap) per stage
+constexpr int W_STAGE_BYTES = BN * BK * 2;
+constexpr int STAGES = 4;
+constexpr int STG_LD = BN + 8;
+constexpr int STG_BYTES = 64 * STG_LD * 2;
+constexpr int PHASES = WG_THREADS / (BN / 8);  // row phases of the epilogue
+constexpr int RED_BYTES = CONSUMERS * 2 * PHASES * BN * 4;
+constexpr int HALO_BATCH = 4;  // halo loads a thread keeps in flight
+constexpr int SMEM_LIMIT = 232448;
 
-// y * a rounded, then + b rounded: no fma, as the plain version computes it
-__device__ __forceinline__ float affine_relu(float y, float a, float b) {
-  return fmaxf(__fadd_rn(__fmul_rn(y, a), b), 0.f);
+// halo rows that MT tiles per warpgroup read: the last tile's farthest tap
+__host__ __device__ inline int halo_rows(int mt, int pw) {
+  return (mt * CONSUMERS * 64 + 2 * pw + 2 + 7) / 8 * 8;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+inline int smem_bytes(int mt, int pw) {
+  return 1024 + STAGES * W_STAGE_BYTES + halo_rows(mt, pw) * CK * 2 + CONSUMERS * STG_BYTES +
+         RED_BYTES + 2 * STAGES * 8;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void load8(const float* __restrict__ p, float (&v)[8]) {
+  const float4 lo = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 hi = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+  v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
 }
 
-__host__ __device__ constexpr size_t round128(size_t n) { return (n + 127) / 128 * 128; }
-
-constexpr size_t WS_BYTES = round128(sizeof(__nv_bfloat16) * NSTAGE * KSLAB * WS_LD);
-constexpr size_t RED_BYTES = sizeof(float) * 2 * PHASES * BN;
-
-__host__ __device__ inline int halo_rows(int row_tiles, int pw) {
-  return row_tiles * 16 + 2 * pw + 2;  // the last row tile's farthest tap
-}
-
-// bytes of the region shared by (halo + filter slabs) and the f32 output tile
-__host__ __device__ inline size_t union_bytes(int row_tiles, int pw) {
-  size_t in = round128(sizeof(__nv_bfloat16) * halo_rows(row_tiles, pw) * LDA) + WS_BYTES;
-  size_t stage = sizeof(float) * row_tiles * 16 * STAGE_LD;
-  return round128(in > stage ? in : stage);
-}
-
-// grid: x = (image, row band, column tile), y = slice of 128 output features
-__global__ void __launch_bounds__(THREADS)
-acs_main_kernel(const __nv_bfloat16* __restrict__ y_prev, const float* __restrict__ a,
-                const float* __restrict__ b, const __nv_bfloat16* __restrict__ kmat,
+// grid: x = (group of k images, band of th rows, column tile), y = slice of
+// 128 output features. MT wgmma tiles per warpgroup (1 where the CTA has at
+// most 128 positions): every tile is computed, so no wgmma sits in a
+// divergent path, which would serialise them
+template <int MT>
+__global__ void __launch_bounds__(THREADS, 1)
+acs_main_kernel(const __grid_constant__ CUtensorMap kmap, const __nv_bfloat16* __restrict__ y_prev,
+                const float* __restrict__ a, const float* __restrict__ b,
                 __nv_bfloat16* __restrict__ y, float* __restrict__ s1_part,
-                float* __restrict__ s2_part, int H, int W, int C, int F, int Fp, int th,
-                int tw) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int pw = tw + 2;
+                float* __restrict__ s2_part, int N, int H, int W, int C, int F, int Fp, int th,
+                int tw, int k) {
+  extern __shared__ uint8_t smem_raw[];
+  const int pw = 1 + k * (tw + 1);
   const int npos = th * pw;
-  const int row_tiles = (npos + 15) / 16;
-  const int nrows = halo_rows(row_tiles, pw);
-  __nv_bfloat16* halo = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [nrows][LDA]
-  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(
-      smem_raw + round128(sizeof(__nv_bfloat16) * nrows * LDA));  // [3][32][136]
-  float* stage = reinterpret_cast<float*>(smem_raw);  // [row_tiles*16][132], after the dots
-  float* red = reinterpret_cast<float*>(smem_raw + union_bytes(row_tiles, pw));
+  const int R = halo_rows(MT, pw);
+  uint8_t* ring = align1024(smem_raw);
+  uint8_t* halo = ring + STAGES * W_STAGE_BYTES;  // [16 chunks][R rows][16 B]
+  uint8_t* stg_all = halo + R * CK * 2;           // [2][64][STG_LD] bf16
+  float* red = reinterpret_cast<float*>(stg_all + CONSUMERS * STG_BYTES);  // [2][2][8][128]
+  uint64_t* full = reinterpret_cast<uint64_t*>(reinterpret_cast<uint8_t*>(red) + RED_BYTES);
+  uint64_t* empty = full + STAGES;
 
   const int bands = (H + th - 1) / th;
   const int ctiles = (W + tw - 1) / tw;
@@ -112,157 +110,195 @@ acs_main_kernel(const __nv_bfloat16* __restrict__ y_prev, const float* __restric
   const int w0 = (bid % ctiles) * tw;
   bid /= ctiles;
   const int h0 = (bid % bands) * th;
-  const int n = bid / bands;
+  const int n0 = (bid / bands) * k;
   const int f0 = blockIdx.y * BN;
-  const __nv_bfloat16* image = y_prev + (size_t)n * H * W * C;
+  const int chunks = C / CK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  const int nslab = (C / CK) * SLABS_PER_CHUNK;
-  // slab s: rows [ks*32, ks*32+32) of tap `tap` of channel chunk `chunk`
-  auto load_slab = [&](int s) {
-    const int chunk = s / SLABS_PER_CHUNK;
-    const int tap = (s % SLABS_PER_CHUNK) / (CK / KSLAB);
-    const int ks = s % (CK / KSLAB);
-    const __nv_bfloat16* src =
-        kmat + (size_t)(tap * C + chunk * CK + ks * KSLAB) * Fp + f0;
-    __nv_bfloat16* dst = ws + (s % NSTAGE) * KSLAB * WS_LD;
-    for (int v = threadIdx.x; v < KSLAB * BN / 8; v += THREADS) {
-      int r = v / (BN / 8);
-      int c = (v % (BN / 8)) * 8;
-      cp_async16(dst + r * WS_LD + c, src + (size_t)r * Fp + c);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * 4);
     }
-    cp_async_commit();
-  };
-  // an empty group where there is no slab keeps the count of groups the same
-  for (int p = 0; p < NSTAGE - 1; ++p) {
-    if (p < nslab)
-      load_slab(p);
-    else
-      cp_async_commit();
+    fence_barrier_init();
   }
-
-  const int warp = threadIdx.x / 32;
-  const int wm = warp % 4;        // row tiles wm and wm + 4
-  const int wn = (warp / 4) * 4;  // first of four 16-column tiles
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int s = 0; s < nslab; ++s) {
-    const int chunk = s / SLABS_PER_CHUNK;
-    const int tap = (s % SLABS_PER_CHUNK) / (CK / KSLAB);
-    const int ks = s % (CK / KSLAB);
-    if (s % SLABS_PER_CHUNK == 0) {
-      __syncthreads();  // every warp is past the previous chunk's halo
-      // xh of this chunk's 128 channels over the halo; zero outside the image
-      // (the convolution pads xh, not y_prev) and in the rows past the halo
-      const int c = chunk * CK + (threadIdx.x % (CK / 8)) * 8;
-      float a8[8], b8[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        a8[e] = __ldg(a + c + e);
-        b8[e] = __ldg(b + c + e);
-      }
-      for (int row = threadIdx.x / (CK / 8); row < nrows; row += THREADS / (CK / 8)) {
-        const int gh = h0 - 1 + row / pw;
-        const int gw = w0 - 1 + row % pw;
-        __align__(16) __nv_bfloat16 xv[8];
-        if (row < (th + 2) * pw && gh >= 0 && gh < H && gw >= 0 && gw < W) {
-          uint4 raw = *reinterpret_cast<const uint4*>(image + ((size_t)gh * W + gw) * C + c);
-          const __nv_bfloat16* yv = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            xv[e] = __float2bfloat16(affine_relu(__bfloat162float(yv[e]), a8[e], b8[e]));
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) xv[e] = __float2bfloat16(0.f);
-        }
-        *reinterpret_cast<uint4*>(halo + row * LDA + (threadIdx.x % (CK / 8)) * 8) =
-            *reinterpret_cast<uint4*>(xv);
-      }
-    }
-    cp_async_wait<NSTAGE - 2>();  // slab s has landed
-    __syncthreads();              // ... and the halo is written
-    // refill the buffer that every warp finished reading in step s - 1
-    if (s + NSTAGE - 1 < nslab)
-      load_slab(s + NSTAGE - 1);
-    else
-      cp_async_commit();
-    const __nv_bfloat16* slab = ws + (s % NSTAGE) * KSLAB * WS_LD;
-    const int shift = (tap / 3) * pw + tap % 3;
-#pragma unroll
-    for (int kk = 0; kk < KSLAB; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        if (wm + 4 * i < row_tiles)
-          wmma::load_matrix_sync(
-              fa[i], halo + ((wm + 4 * i) * 16 + shift) * LDA + ks * KSLAB + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, slab + kk * WS_LD + (wn + j) * 16, WS_LD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          if (wm + 4 * i < row_tiles) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is past its last read of the halo and the slabs
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    if (wm + 4 * i < row_tiles)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::store_matrix_sync(stage + (wm + 4 * i) * 16 * STAGE_LD + (wn + j) * 16,
-                                acc[i][j], STAGE_LD, wmma::mem_row_major);
   __syncthreads();
 
-  // round, store, and sum the rounded values: a thread keeps one group of 8
-  // features for the positions of its phase
-  const int fg = threadIdx.x % (BN / 8);
-  const int phase = threadIdx.x / (BN / 8);
+  if (warp >= CONSUMERS * 4) {
+    // producer: 9 taps x 2 halves of each channel chunk, from one thread
+    reg_dealloc<PRODUCER_REGS>();
+    if (warp == CONSUMERS * 4 && lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int chunk = 0; chunk < chunks; ++chunk)
+        for (int tap = 0; tap < 9; ++tap)
+          for (int half = 0; half < 2; ++half) {
+            mbar_wait(&empty[stage], phase ^ 1);
+            mbar_expect_tx(&full[stage], W_STAGE_BYTES);
+            tma_load_2d(ring + stage * W_STAGE_BYTES, &kmap, &full[stage],
+                        tap * C + chunk * CK + half * BK, f0);
+            if (++stage == STAGES) stage = 0, phase ^= 1;
+          }
+    }
+    return;
+  }
+
+  reg_alloc<CONSUMER_REGS>();
+  const int wg = warp / 4, wq = warp % 4;
+  const int t = threadIdx.x % WG_THREADS;
+  const uint32_t halo_addr = smem_u32(halo), ring_addr = smem_u32(ring);
+  const __nv_bfloat16* image0 = y_prev + (size_t)n0 * H * W * C;
+  float acc[MT][64];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[mt][i] = 0.f;
+  int stage = 0;
+  uint32_t phase = 0;
+
+  for (int chunk = 0; chunk < chunks; ++chunk) {
+    named_barrier(1, CONSUMERS * WG_THREADS);  // every wgmma reading the halo has completed
+    {
+      // xh of this chunk over the halo, zero outside the images (the
+      // convolution pads xh, not y_prev) and in the rows past the halo. Warp
+      // w fills quad w % 4 (lane / 8 picks the chunk) of row groups w / 4,
+      // w / 4 + 2, ...; lane % 8 is the row in the group
+      const int j = wq * 4 + lane / 8;
+      const int c = chunk * CK + j * 8;
+      float a8[8], b8[8];
+      load8(a + c, a8);
+      load8(b + c, b8);
+      for (int g0 = wg; g0 < R / 8; g0 += 2 * HALO_BATCH) {
+        uint4 raw[HALO_BATCH];
+        bool ok[HALO_BATCH];
+#pragma unroll
+        for (int u = 0; u < HALO_BATCH; ++u) {
+          const int row = (g0 + 2 * u) * 8 + lane % 8;
+          const int hrow = row / pw, hcol = row % pw;
+          const int gh = h0 - 1 + hrow;
+          const int slot = hcol == 0 ? 0 : (hcol - 1) / (tw + 1);
+          const int gw = hcol == 0 ? w0 - 1 : w0 + (hcol - 1) % (tw + 1);
+          ok[u] = g0 + 2 * u < R / 8 && hrow < th + 2 && gh >= 0 && gh < H && gw >= 0 &&
+                  gw < W && n0 + slot < N;
+          raw[u] = ok[u] ? __ldg(reinterpret_cast<const uint4*>(
+                               image0 + (((size_t)slot * H + gh) * W + gw) * C + c))
+                         : make_uint4(0, 0, 0, 0);
+        }
+#pragma unroll
+        for (int u = 0; u < HALO_BATCH; ++u) {
+          if (g0 + 2 * u >= R / 8) break;
+          const int row = (g0 + 2 * u) * 8 + lane % 8;
+          const __nv_bfloat16* yv = reinterpret_cast<const __nv_bfloat16*>(&raw[u]);
+          __align__(16) __nv_bfloat16 xv[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            xv[e] = __float2bfloat16(
+                ok[u] ? affine_relu(__bfloat162float(yv[e]), a8[e], b8[e]) : 0.f);
+          *reinterpret_cast<uint4*>(halo + ((size_t)j * R + row) * 16) =
+              *reinterpret_cast<const uint4*>(xv);
+        }
+      }
+    }
+    fence_proxy_async();
+    named_barrier(1, CONSUMERS * WG_THREADS);
+
+    int held = -1;
+    for (int tap = 0; tap < 9; ++tap) {
+      const int shift = (tap / 3) * pw + tap % 3;
+      for (int half = 0; half < 2; ++half) {
+        mbar_wait(&full[stage], phase);
+        const uint32_t w_addr = ring_addr + stage * W_STAGE_BYTES;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const uint64_t db = desc_kmajor_sw128(w_addr + kk * 32);
+          const int accumulate = (chunk | tap | half | kk) != 0;
+          const int kc = half * 8 + kk * 2;  // first 8-channel chunk of this k16 step
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            wgmma_m64n128k16<0, 0>(
+                  acc[mt],
+                  desc_kmajor_chunks(halo_addr + (kc * R + (wg + 2 * mt) * 64 + shift) * 16, R),
+                  db, accumulate);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
+        wgmma_wait<1>();
+        if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+        held = stage;
+        if (++stage == STAGES) stage = 0, phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
+    if (lane == 0) mbar_arrive(&empty[held]);
+  }
+
+  // round, stage, store, and sum the rounded values: a thread keeps one group
+  // of 8 features for the rows of its phase
+  __nv_bfloat16* stg = reinterpret_cast<__nv_bfloat16*>(stg_all + wg * STG_BYTES);
+  const int fg = t % (BN / 8);
+  const int ph = t / (BN / 8);
   const int f = f0 + fg * 8;
   float sum8[8], sq8[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e) sum8[e] = sq8[e] = 0.f;
-  for (int p = phase; p < npos; p += PHASES) {
-    const int wl = p % pw;
-    const int gh = h0 + p / pw;
-    const int gw = w0 + wl;
-    if (wl >= tw || gh >= H || gw >= W) continue;  // a padding column or past the image
-    const float* src = stage + p * STAGE_LD + fg * 8;
-    __align__(16) __nv_bfloat16 yv[8];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      yv[e] = __float2bfloat16(src[e]);
-      float v = __bfloat162float(yv[e]);
-      sum8[e] += v;
-      sq8[e] += v * v;
+  for (int mt = 0; mt < MT; ++mt) {
+    if ((wg + 2 * mt) * 64 >= npos) break;  // uniform over the warpgroup
+    named_barrier(2 + wg, WG_THREADS);  // the previous tile's staged rows are stored
+    {
+      const int r = wq * 16 + lane / 4;
+#pragma unroll
+      for (int jn = 0; jn < BN / 8; ++jn) {
+        const int col = jn * 8 + (lane % 4) * 2;
+        *reinterpret_cast<__nv_bfloat162*>(stg + r * STG_LD + col) =
+            __floats2bfloat162_rn(acc[mt][4 * jn], acc[mt][4 * jn + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(stg + (r + 8) * STG_LD + col) =
+            __floats2bfloat162_rn(acc[mt][4 * jn + 2], acc[mt][4 * jn + 3]);
+      }
     }
-    __nv_bfloat16* dst = y + (((size_t)n * H + gh) * W + gw) * F + f;
-    if (F % 8 == 0) {
-      if (f < F) *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(yv);
-    } else {
+    named_barrier(2 + wg, WG_THREADS);
+    for (int r = ph; r < 64; r += PHASES) {
+      const int p = (wg + 2 * mt) * 64 + r;
+      const int hl = p / pw, wl = p % pw;
+      const int slot = wl / (tw + 1), lc = wl % (tw + 1);
+      const int gh = h0 + hl, gw = w0 + lc;
+      if (p >= npos || lc >= tw || slot >= k || gh >= H || gw >= W || n0 + slot >= N) continue;
+      const __nv_bfloat16* yv = stg + r * STG_LD + fg * 8;
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        if (f + e < F) dst[e] = yv[e];
+      for (int e = 0; e < 8; ++e) {
+        const float v = __bfloat162float(yv[e]);
+        sum8[e] += v;
+        sq8[e] += v * v;
+      }
+      __nv_bfloat16* dst = y + ((((size_t)(n0 + slot)) * H + gh) * W + gw) * F + f;
+      if (F % 8 == 0) {
+        if (f < F) *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(yv);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (f + e < F) dst[e] = yv[e];
+      }
     }
   }
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
-    red[phase * BN + fg * 8 + e] = sum8[e];
-    red[(PHASES + phase) * BN + fg * 8 + e] = sq8[e];
+    red[((wg * 2 + 0) * PHASES + ph) * BN + fg * 8 + e] = sum8[e];
+    red[((wg * 2 + 1) * PHASES + ph) * BN + fg * 8 + e] = sq8[e];
   }
-  __syncthreads();
-  if (threadIdx.x < BN) {  // fixed-order sum over the phases
+  named_barrier(1, CONSUMERS * WG_THREADS);
+  if (threadIdx.x < BN) {  // fixed-order sum over the warpgroups and phases
     float t1 = 0.f, t2 = 0.f;
-    for (int p = 0; p < PHASES; ++p) {
-      t1 += red[p * BN + threadIdx.x];
-      t2 += red[(PHASES + p) * BN + threadIdx.x];
-    }
+    for (int g = 0; g < CONSUMERS; ++g)
+      for (int p = 0; p < PHASES; ++p) {
+        t1 += red[((g * 2 + 0) * PHASES + p) * BN + threadIdx.x];
+        t2 += red[((g * 2 + 1) * PHASES + p) * BN + threadIdx.x];
+      }
     s1_part[(size_t)blockIdx.x * Fp + f0 + threadIdx.x] = t1;
     s2_part[(size_t)blockIdx.x * Fp + f0 + threadIdx.x] = t2;
   }
@@ -271,10 +307,10 @@ acs_main_kernel(const __nv_bfloat16* __restrict__ y_prev, const float* __restric
 // fixed-order sums of the per-CTA partials: 8 segments per feature, then the 8
 constexpr int RED_SEGS = 8;
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(32 * RED_SEGS)
 acs_reduce_kernel(const float* __restrict__ s1_part, const float* __restrict__ s2_part,
                   float* __restrict__ s1, float* __restrict__ s2, int F, int Fp, int nparts) {
-  __shared__ float red[2][RED_SEGS][32];
+  __shared__ float red2[2][RED_SEGS][32];
   const int fl = threadIdx.x % 32;
   const int seg = threadIdx.x / 32;
   const int f = blockIdx.x * 32 + fl;
@@ -287,14 +323,14 @@ acs_reduce_kernel(const float* __restrict__ s1_part, const float* __restrict__ s
       t2 += s2_part[(size_t)p * Fp + f];
     }
   }
-  red[0][seg][fl] = t1;
-  red[1][seg][fl] = t2;
+  red2[0][seg][fl] = t1;
+  red2[1][seg][fl] = t2;
   __syncthreads();
   if (seg == 0 && f < F) {
     t1 = t2 = 0.f;
     for (int g = 0; g < RED_SEGS; ++g) {
-      t1 += red[0][g][fl];
-      t2 += red[1][g][fl];
+      t1 += red2[0][g][fl];
+      t2 += red2[1][g][fl];
     }
     s1[f] = t1;
     s2[f] = t2;
@@ -303,35 +339,52 @@ acs_reduce_kernel(const float* __restrict__ s1_part, const float* __restrict__ s
 
 }  // namespace
 
-// y_prev [N, H, W, C] bf16, a, b [C] f32, kmat [9C, Fp] bf16 (row (ky*3+kx)*C + c;
-// Fp = F rounded up to a multiple of 128, the added columns zero), all
-// contiguous. Outputs y [N, H, W, F] bf16, s1, s2 [F] f32. Scratch s1_part,
-// s2_part [N * ceil(H/th) * ceil(W/tw), Fp] f32. th x tw is a CTA's tile of
-// output pixels, th * (tw + 2) <= 128.
+// y_prev [N, H, W, C] bf16, a, b [C] f32, kt [F, 9C] bf16 (row f, column
+// (ky*3+kx)*C + c), all contiguous. Outputs y [N, H, W, F] bf16, s1, s2 [F]
+// f32. Scratch s1_part, s2_part [ceil(N/k) * ceil(H/th) * ceil(W/tw), Fp] f32,
+// Fp = F rounded up to a multiple of 128; `parts` is the number of their
+// rows, which must be the CTAs' count. A CTA's positions are th rows of k
+// images of tw columns side by side, th * (1 + k * (tw + 1)) <= 256; k > 1
+// only with tw = W.
 extern "C" int vince_affine_conv3x3_stats_bf16(
-    const void* y_prev, const float* a, const float* b, const void* kmat, void* y, float* s1,
-    float* s2, float* s1_part, float* s2_part, int N, int H, int W, int C, int F, int Fp,
-    int th, int tw, void* stream_ptr) {
+    const void* y_prev, const float* a, const float* b, const void* kt, void* y, float* s1,
+    float* s2, float* s1_part, float* s2_part, int N, int H, int W, int C, int F, int th,
+    int tw, int k, int parts, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || F <= 0 || C % CK || Fp % BN || Fp < F ||
-      th <= 0 || tw <= 0 || (long long)th * (tw + 2) > MAX_POS)
+  const int Fp = (F + BN - 1) / BN * BN;
+  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || F <= 0 || C % CK || th <= 0 || tw <= 0 ||
+      k <= 0 || (k > 1 && tw != W) || (long long)th * (1 + (long long)k * (tw + 1)) > MAX_POS)
     return (int)cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(y_prev) % 16 || reinterpret_cast<uintptr_t>(kmat) % 16 ||
+  if (reinterpret_cast<uintptr_t>(y_prev) % 16 || reinterpret_cast<uintptr_t>(kt) % 16 ||
       reinterpret_cast<uintptr_t>(y) % 16)
     return (int)cudaErrorMisalignedAddress;
-  const long long nparts = (long long)N * ((H + th - 1) / th) * ((W + tw - 1) / tw);
-  if (nparts > 2147483647LL || Fp / BN > 65535) return (int)cudaErrorInvalidValue;
-  const int row_tiles = (th * (tw + 2) + 15) / 16;
-  const size_t smem = union_bytes(row_tiles, tw + 2) + RED_BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      acs_main_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const long long nparts =
+      (long long)((N + k - 1) / k) * ((H + th - 1) / th) * ((W + tw - 1) / tw);
+  if (nparts != parts || Fp / BN > 65535) return (int)cudaErrorInvalidValue;
+  CUtensorMap kmap;
+  int status = hopper_host::map_bf16_sw128(&kmap, kt, F, 9 * (uint64_t)C, BN);
+  if (status) return status;
+  const int pw = 1 + k * (tw + 1);
+  const int mt = th * pw > CONSUMERS * 64 ? 2 : 1;
+  const int smem = smem_bytes(mt, pw);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  auto kernel = mt == 2 ? acs_main_kernel<2> : acs_main_kernel<1>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)nparts, Fp / BN);
-  acs_main_kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(y_prev), a, b, static_cast<const __nv_bfloat16*>(kmat),
-      static_cast<__nv_bfloat16*>(y), s1_part, s2_part, H, W, C, F, Fp, th, tw);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      kmap, static_cast<const __nv_bfloat16*>(y_prev), a, b, static_cast<__nv_bfloat16*>(y),
+      s1_part, s2_part, N, H, W, C, F, Fp, th, tw, k);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  acs_reduce_kernel<<<(F + 31) / 32, THREADS, 0, stream>>>(s1_part, s2_part, s1, s2, F, Fp,
-                                                           (int)nparts);
+  acs_reduce_kernel<<<(F + 31) / 32, 32 * RED_SEGS, 0, stream>>>(s1_part, s2_part, s1, s2, F,
+                                                                 Fp, parts);
   return (int)cudaGetLastError();
+}
+
+// The shared memory a CTA of the tile (th, tw, k) takes; the wrapper's tiling
+// keeps a copy of this count in Python, held equal to it on the card.
+extern "C" int vince_affine_conv3x3_stats_smem_bytes(int th, int tw, int k) {
+  const int pw = 1 + k * (tw + 1);
+  return smem_bytes(th * pw > CONSUMERS * 64 ? 2 : 1, pw);
 }

@@ -1,286 +1,310 @@
 // Fused BN-apply + ReLU + 1x1 dot + input moments (K2), CUDA C++ for sm_90a.
 //
 // Replaces the TPU kernel vince_tpu/ops/pallas/folded_dot_kernel.py
-// (_pallas_impl / _kernel). For y [M, C] bf16, a, b [C] f32 and W [C, F] bf16:
+// (_pallas_impl / _kernel). For y [M, C] bf16, a, b [C] f32 and W [C, F] bf16
+// (given transposed, wt = W^T [F, C]):
 //     xh32 = relu(a * y + b)          (f32, never written to device memory)
 //     out  = bf16(xh @ W)             xh = bf16(xh32), f32 accumulation
 //     s1   = sum_rows xh32            (from the f32 xh, before rounding)
 //     s2   = xh^T xh                  (bf16 xh, f32 accumulation)
 //
-// What bounds it on the H100: bytes at stages 2 and 3, operations at stage 4.
-// At the ResNet50 sites the output [M, F] bf16 is 4x the input; e.g. stage 2
-// (M=100352, C=128, F=512) moves 129 MB for 16 GFLOP, so 3.35 TB/s, not the
-// 989 TFLOP/s bf16 rate, sets the least time. The design keeps xh out of
-// device memory and feeds the tensor cores through WMMA bf16 fragments
-// (mma.sync) read from shared memory; wgmma and TMA come later.
+// What bounds it on the H100: bytes at ResNet50 stages 2 and 3, operations at
+// stage 4. The output [M, F] bf16 is 4x the input; stage 2 (M=100352, C=128,
+// F=512) moves 129 MB for 13 GFLOP, so 3.35 TB/s, not the 989 TFLOP/s bf16
+// rate, sets the least time; stage 4 (M=6272, C=512, F=2048) is 34 MB for 15
+// GFLOP.
 //
-// Design. On the TPU the grid runs in order and carries s1 and s2 across row
-// blocks in VMEM. Here blocks run in parallel, and s2 is up to [512, 512] f32,
-// too large to keep per block. So the work is three launches:
-//   1. main: one CTA per (64 rows, 128 output columns) applies the affine +
-//      ReLU into shared memory and runs its slice of the main dot. W's slice
-//      streams through shared memory in 32-row slabs, three in a cp.async
-//      pipeline, so that the eight warps share each slab (reading W fragments
-//      straight from L2 made every warp fetch them again and left the kernel
-//      bound by L2 traffic). The CTAs of the first column slice also write
-//      their column sums of the f32 xh (s1 partials). Splitting F over the
-//      grid keeps the SMs busy at stage 4 (98 row blocks, F=2048), at the cost
-//      of re-reading each y row block F/128 times, from L2;
-//   2. moments: s2 is tiled into 128 x 128 blocks (upper triangle only, the
-//      matrix is symmetric) and each tile is split over M; a CTA recomputes
-//      xh for its two column strips, 64 rows at a time, and accumulates
-//      xh_i^T xh_j. The next rows' y is loaded into registers while the tensor
-//      cores work on the current ones;
-//   3. reduce: sums the partials of s1 and s2 in a fixed order.
-// Partials plus a second pass, not float atomics, so that s1 and s2 are
-// bitwise reproducible from run to run; the scratch is at most a few MB per
-// site. Moments re-read y once per column strip; at these shapes y fits in
-// the 50 MB L2. Rows past M are masked to xh = 0. F must be a multiple of
-// 128, C a multiple of 128 up to 1024 (the [64, C] block of xh fits in shared
-// memory), and y, W and out 16-byte aligned.
+// Design. Three launches, as on the TPU the grid carries s1 and s2 across
+// row blocks in VMEM and here blocks run in parallel:
+//   1. main (out): persistent CTAs, about one per SM, walk work items of 128
+//      rows x (F / fsplit) columns. Two consumer warpgroups own 64 rows each:
+//      each reads its rows of y once per item, applies the affine + ReLU and
+//      keeps x̂ in shared memory ("chunk-major", see hopper.cuh), then walks
+//      its F columns in chunks of 128 with wgmma m64n128k16, x̂ as A and W as
+//      B, accumulators in registers. The next item's first 32 channels of y
+//      are loaded during an item's last F chunk. A producer warp streams W^T boxes of
+//      [128 columns, 64 channels] by TMA (128-byte swizzle) through a ring of
+//      mbarrier'd stages that both warpgroups share, so W is read from L2
+//      once per 128 rows. The epilogue rounds to bf16, stages the 64 x 128
+//      tile in shared memory, half at a time (so that C = 512 keeps 4 W
+//      stages), and stores 16-byte vectors. fsplit > 1 splits F
+//      over items where there are fewer row blocks than SMs (stage 4: 49 row
+//      blocks), at the cost of building x̂ fsplit times. x̂ stays resident
+//      for C <= 512; above that cap (C = 1152, 2048) it is rebuilt for each F
+//      chunk in super-chunks of sc channels, reading y F / 128 times.
+//   2. moments (s2 and s1): s2 is tiled into 128 x 128 blocks (upper triangle,
+//      the matrix is symmetric), each tile split over M. A CTA recomputes x̂
+//      for its two column strips, 64 rows at a time into double-buffered
+//      chunk-major strips, and accumulates x̂_i^T x̂_j with wgmma reading both
+//      strips MN-major (no transposed copy). A producer warp keeps 4 steps of
+//      y in flight by TMA (holding them in registers, one step per thread,
+//      left the pass at ~12 GB/s per SM). The diagonal tiles also sum the
+//      f32 x̂ of their strip (s1 partials), so each channel is summed once.
+//   3. reduce: sums the partials in a fixed order, 8 segments of partials per
+//      element and then the 8, so the pass has C * C / 32 CTAs.
+// Partials and a fixed order, not float atomics, so that s1 and s2 are
+// bitwise reproducible from run to run. s2 is not fused into the main pass,
+// at any C: at C = 128 a warpgroup would hold 96 f32 of s2 beside 64 of out
+// and a prefetch of y, past the registers a consumer has, and it would still
+// leave one 64 KB partial per warpgroup to reduce; the moments pass costs one
+// more read of y (about a quarter of K2's time at ResNet50's sites, PERF.md).
+// Rows past M are masked to x̂ = 0. C and F must be multiples of 128, y, wt
+// and out 16-byte aligned.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
-using namespace nvcuda;
+using namespace hopper;
 
 namespace {
 
-constexpr int THREADS = 256;  // 8 warps
-constexpr int MAIN_ROWS = 64;
-constexpr int MAIN_FCHUNK = 128;
-constexpr int MAIN_STAGE_LD = MAIN_FCHUNK + 4;
-constexpr int KSLAB = 32;               // W rows per shared-memory slab
-constexpr int NSTAGE = 3;               // slabs in flight or in use
-constexpr int WS_LD = MAIN_FCHUNK + 8;  // padded slab row (bf16)
-constexpr int TILE = 128;     // s2 tile edge
+constexpr int WG_THREADS = 128;
+constexpr int CONSUMERS = 2;  // warpgroups of 64 rows
+constexpr int THREADS = (CONSUMERS + 1) * WG_THREADS;  // + the producer warpgroup
+constexpr int PRODUCER_REGS = 40;   // registers a thread of the producer keeps
+constexpr int CONSUMER_REGS = 232;  // and of the consumers: 2 x 128 x 232 + 128 x 40 <= 64K
+constexpr int WG_ROWS = 64;
+constexpr int BLOCK_ROWS = CONSUMERS * WG_ROWS;  // rows of a work item
+constexpr int BN = 128;                          // output columns per F chunk
+constexpr int BK = 64;                           // channels per W stage
+constexpr int W_STAGE_BYTES = BN * BK * 2;       // 16 KB
+constexpr int MAX_STAGES = 8;
+constexpr int SC_MAX = 512;  // channels of x̂ a warpgroup keeps
+constexpr int STG_COLS = BN / 2;  // the epilogue stages half a chunk at a time
+constexpr int STG_LD = STG_COLS + 8;  // staged output row (bf16): 144 bytes, no bank conflicts
+constexpr int STG_BYTES = WG_ROWS * STG_LD * 2;
+constexpr int SMEM_LIMIT = 232448;
+
+constexpr int MOM_THREADS = 2 * WG_THREADS + 32;  // two warpgroups + a producer warp
 constexpr int MOM_ROWS = 64;  // rows per step of the moments loop
-constexpr int MOM_LD = TILE + 8;
-constexpr int MOM_STAGE_LD = TILE + 4;
-constexpr int MOM_VECS = MOM_ROWS * TILE / 8 / THREADS;  // 8-column vectors per thread
+constexpr int TILE = 128;     // s2 tile edge
+constexpr int STRIP_BYTES = TILE / 8 * MOM_ROWS * 16;  // one chunk-major strip, 16 KB
+constexpr int BOX_BYTES = MOM_ROWS * 64 * 2;           // a TMA box of y: 64 rows x 64 channels
+constexpr int RAW_STAGES = 4;                          // steps of y in flight
+constexpr int RAW_BYTES = 4 * BOX_BYTES;               // a step: 2 strips x 2 boxes
+constexpr int MOM_SMEM = 1024 + RAW_STAGES * RAW_BYTES + 4 * STRIP_BYTES + 2 * RAW_STAGES * 8;
 
-// y * a rounded, then + b rounded: no fma, as the plain version computes it,
-// so that xh rounds to the same bf16 (an fma flips a bf16 rounding now and
-// then, which moves s2 by up to ~1e-4 of its largest entry at small M)
-__device__ __forceinline__ float affine_relu(float y, float a, float b) {
-  return fmaxf(__fadd_rn(__fmul_rn(y, a), b), 0.f);
+// shared memory of the main kernel besides the W ring
+inline int main_fixed_bytes(int sc) {
+  return 1024 + CONSUMERS * sc * WG_ROWS * 2 + CONSUMERS * STG_BYTES + 2 * MAX_STAGES * 8;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void load8(const float* __restrict__ p, float (&v)[8]) {
+  const float4 lo = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 hi = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+  v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// rows [k0, k0 + KSLAB) of W's column slice [f0, f0 + 128) into ws, one group
-__device__ __forceinline__ void load_w_slab(const __nv_bfloat16* __restrict__ w,
-                                            __nv_bfloat16* ws, int k0, int f0, int F) {
-  for (int v = threadIdx.x; v < KSLAB * MAIN_FCHUNK / 8; v += THREADS) {
-    int r = v / (MAIN_FCHUNK / 8);
-    int c = (v % (MAIN_FCHUNK / 8)) * 8;
-    cp_async16(ws + r * WS_LD + c, w + (size_t)(k0 + r) * F + f0 + c);
+// y [rows r0 + g * 8 + lane % 8, 8 channels from c] for g < 8: one quad of 4
+// chunks per warp, lane / 8 picking the chunk, so that a warp's load reads 64
+// contiguous bytes of each of 8 rows; rows at or past r_end read as 0
+__device__ __forceinline__ void fetch_quad(const __nv_bfloat16* __restrict__ y, uint4 (&raw)[8],
+                                           int r0, int r_end, int c, int C, int lane) {
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {
+    const int gr = r0 + g * 8 + lane % 8;
+    raw[g] = gr < r_end ? __ldg(reinterpret_cast<const uint4*>(y + (size_t)gr * C + c))
+                        : make_uint4(0, 0, 0, 0);
   }
-  cp_async_commit();
 }
 
-__host__ __device__ constexpr size_t round128(size_t n) { return (n + 127) / 128 * 128; }
-
-// bytes of the main kernel's shared memory regions for a given C
-__host__ __device__ inline size_t main_union_bytes(int C) {
-  size_t xs = sizeof(__nv_bfloat16) * MAIN_ROWS * (C + 8);
-  size_t stage = sizeof(float) * MAIN_ROWS * MAIN_STAGE_LD;
-  return round128(xs > stage ? xs : stage);
-}
-constexpr size_t MAIN_WS_BYTES = round128(sizeof(__nv_bfloat16) * NSTAGE * KSLAB * WS_LD);
-constexpr size_t MAIN_RED_BYTES = sizeof(float) * THREADS * 8;  // (THREADS / (C/8)) * C
-
-// ---- 1. main: out and s1 partials -------------------------------------------
-__global__ void __launch_bounds__(THREADS)
-ardm_main_kernel(const __nv_bfloat16* __restrict__ y, const float* __restrict__ a,
-                 const float* __restrict__ b, const __nv_bfloat16* __restrict__ w,
-                 __nv_bfloat16* __restrict__ out, float* __restrict__ s1_part,
-                 int M, int C, int F) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int ldx = C + 8;
-  const size_t ub = main_union_bytes(C);
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][C+8]
-  float* stage = reinterpret_cast<float*>(smem_raw);  // [64][132], after the dot
-  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem_raw + ub);  // [3][32][136]
-  float* red = reinterpret_cast<float*>(smem_raw + ub + MAIN_WS_BYTES);
-
-  const int row0 = blockIdx.x * MAIN_ROWS;
-  const int f0 = blockIdx.y * MAIN_FCHUNK;
-  const int nslab = C / KSLAB;
-  // the first slabs are in flight during the affine pass; an empty group
-  // where there is no slab keeps the count of groups the same for every C
-  for (int p = 0; p < NSTAGE - 1; ++p) {
-    if (p < nslab)
-      load_w_slab(w, ws + p * KSLAB * WS_LD, p * KSLAB, f0, F);
-    else
-      cp_async_commit();
-  }
-
-  // each thread keeps one column group of 8 for all its rows; where THREADS
-  // is not a multiple of the C / 8 groups (C = 384, 640, 768, 896), the
-  // threads past nphase * groups sit out this pass
-  const int groups = C / 8;
-  const int g = threadIdx.x % groups;
-  const int phase = threadIdx.x / groups;
-  const int nphase = THREADS / groups;
-
-  if (phase < nphase) {
-    float a8[8], b8[8], sum8[8];
+// x̂ of those rows into chunk j of a chunk-major tile of `rows` rows; rows at
+// or past r_end are 0. With S1 the f32 x̂ is added to sum8. The 16-byte
+// stores of a quarter warp fall on 8 consecutive rows: no bank conflict.
+template <bool S1>
+__device__ __forceinline__ void store_quad(const uint4 (&raw)[8], const float (&a8)[8],
+                                           const float (&b8)[8], float (&sum8)[8], uint8_t* tile,
+                                           int rows, int j, int r0, int r_end, int lane) {
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {
+    const int r = g * 8 + lane % 8;
+    const bool valid = r0 + r < r_end;
+    const __nv_bfloat16* yv = reinterpret_cast<const __nv_bfloat16*>(&raw[g]);
+    __align__(16) __nv_bfloat16 xv[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      a8[e] = a[g * 8 + e];
-      b8[e] = b[g * 8 + e];
-      sum8[e] = 0.f;
+      const float v = valid ? affine_relu(__bfloat162float(yv[e]), a8[e], b8[e]) : 0.f;
+      if (S1) sum8[e] += v;
+      xv[e] = __float2bfloat16(v);
     }
-    for (int r = phase; r < MAIN_ROWS; r += nphase) {
-      int gr = row0 + r;
-      __align__(16) __nv_bfloat16 xv[8];
-      if (gr < M) {
-        uint4 raw = *reinterpret_cast<const uint4*>(y + (size_t)gr * C + g * 8);
-        const __nv_bfloat16* yv = reinterpret_cast<const __nv_bfloat16*>(&raw);
+    *reinterpret_cast<uint4*>(tile + ((size_t)j * rows + r) * 16) =
+        *reinterpret_cast<const uint4*>(xv);
+  }
+}
+
+// ---- 1. main: out -------------------------------------------------------------
+__global__ void __launch_bounds__(THREADS, 1)
+ardm_main_kernel(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat16* __restrict__ y,
+                 const float* __restrict__ a, const float* __restrict__ b,
+                 __nv_bfloat16* __restrict__ out, int M, int C, int F, int fsplit, int sc,
+                 int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);  // [stages][128 x 64] bf16, 128-byte swizzle
+  uint8_t* xs_all = ring + stages * W_STAGE_BYTES;          // [2][sc / 8][64 rows][16 B]
+  uint8_t* stg_all = xs_all + CONSUMERS * sc * WG_ROWS * 2;  // [2][64][STG_LD] bf16
+  uint64_t* full = reinterpret_cast<uint64_t*>(stg_all + CONSUMERS * STG_BYTES);
+  uint64_t* empty = full + MAX_STAGES;
+
+  const int items = (M + BLOCK_ROWS - 1) / BLOCK_ROWS * fsplit;
+  const int fchunks = F / BN / fsplit;  // F chunks of an item
+  const int nsc = C / sc;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= CONSUMERS * 4) {
+    // producer: the W^T boxes in the order the consumers take them, from one thread
+    reg_dealloc<PRODUCER_REGS>();
+    if (warp == CONSUMERS * 4 && lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        const int fs = it % fsplit;
+        for (int fc = 0; fc < fchunks; ++fc)
+          for (int kb = 0; kb < C / BK; ++kb) {
+            mbar_wait(&empty[stage], phase ^ 1);
+            mbar_expect_tx(&full[stage], W_STAGE_BYTES);
+            tma_load_2d(ring + stage * W_STAGE_BYTES, &wmap, &full[stage], kb * BK,
+                        (fs * fchunks + fc) * BN);
+            if (++stage == stages) stage = 0, phase ^= 1;
+          }
+      }
+    }
+    return;
+  }
+
+  // consumers
+  reg_alloc<CONSUMER_REGS>();
+  const int wg = warp / 4, wq = warp % 4;
+  const int t = threadIdx.x % WG_THREADS;
+  const int bar = 1 + wg;  // this warpgroup's named barrier
+  uint8_t* xs = xs_all + wg * sc * WG_ROWS * 2;
+  __nv_bfloat16* stg = reinterpret_cast<__nv_bfloat16*>(stg_all + wg * STG_BYTES);
+  const uint32_t xs_addr = smem_u32(xs), ring_addr = smem_u32(ring);
+  int stage = 0;
+  uint32_t phase = 0;
+  float acc[64];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          float v = affine_relu(__bfloat162float(yv[e]), a8[e], b8[e]);
-          sum8[e] += v;
-          xv[e] = __float2bfloat16(v);
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float unused[8];
+  // y of the next item's first quad, loaded during this item's last F chunk
+  // where x̂ is built once per item (nsc = 1), so that the build waits less
+  uint4 next[8];
+  bool have_next = false;
+
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int row0 = (it / fsplit) * BLOCK_ROWS + wg * WG_ROWS;
+    const int fs = it % fsplit;
+    for (int fc = 0; fc < fchunks; ++fc) {
+      const int f0 = (fs * fchunks + fc) * BN;
+      for (int sci = 0; sci < nsc; ++sci) {
+        if (fc == 0 || nsc > 1) {
+          named_barrier(bar, WG_THREADS);  // every wgmma reading xs has completed
+          for (int q = wq; q < sc / 32; q += 4) {
+            const int j = q * 4 + lane / 8;
+            const int c = sci * sc + j * 8;
+            float a8[8], b8[8];
+            load8(a + c, a8);
+            load8(b + c, b8);
+            uint4 raw[8];
+            if (q == wq && have_next) {
+#pragma unroll
+              for (int g = 0; g < 8; ++g) raw[g] = next[g];
+            } else {
+              fetch_quad(y, raw, row0, M, c, C, lane);
+            }
+            store_quad<false>(raw, a8, b8, unused, xs, WG_ROWS, j, row0, M, lane);
+          }
+          have_next = false;
+          fence_proxy_async();
+          named_barrier(bar, WG_THREADS);
         }
-      } else {
+        const int it_next = it + gridDim.x;
+        if (nsc == 1 && fc == fchunks - 1 && it_next < items) {
+          fetch_quad(y, next, (it_next / fsplit) * BLOCK_ROWS + wg * WG_ROWS, M,
+                     (wq * 4 + lane / 8) * 8, C, lane);
+          have_next = true;
+        }
+        int held = -1;  // the stage that the last committed group reads
+        for (int kb = 0; kb < sc / BK; ++kb) {
+          mbar_wait(&full[stage], phase);
+          const uint32_t w_addr = ring_addr + stage * W_STAGE_BYTES;
+          fence_acc(acc);
+          wgmma_fence();
 #pragma unroll
-        for (int e = 0; e < 8; ++e) xv[e] = __float2bfloat16(0.f);
+          for (int kk = 0; kk < BK / 16; ++kk)
+            wgmma_m64n128k16<0, 0>(
+                acc, desc_kmajor_chunks(xs_addr + (kb * 8 + kk * 2) * WG_ROWS * 16, WG_ROWS),
+                desc_kmajor_sw128(w_addr + kk * 32), (sci | kb | kk) != 0);
+          wgmma_commit();
+          fence_acc(acc);
+          wgmma_wait<1>();  // the previous group is done: its stage goes back
+          if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+          held = stage;
+          if (++stage == stages) stage = 0, phase ^= 1;
+        }
+        wgmma_wait<0>();
+        fence_acc(acc);
+        if (lane == 0) mbar_arrive(&empty[held]);
       }
-      *reinterpret_cast<uint4*>(xs + r * ldx + g * 8) = *reinterpret_cast<uint4*>(xv);
-    }
-    // s1: fixed-order sum over the phases that share a column group
-#pragma unroll
-    for (int e = 0; e < 8; ++e) red[phase * C + g * 8 + e] = sum8[e];
-  }
-  __syncthreads();
-  if (blockIdx.y == 0) {
-    for (int c = threadIdx.x; c < C; c += THREADS) {
-      float acc = 0.f;
-      for (int p = 0; p < nphase; ++p) acc += red[p * C + c];
-      s1_part[(size_t)blockIdx.x * C + c] = acc;
-    }
-  }
 
-  const int warp = threadIdx.x / 32;
-  const int rw = warp % 4;         // 16-row group
-  const int cg = (warp / 4) * 4;   // first of four 16-column fragments
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+      // epilogue: round, stage 64 x 64 halves of the tile, store 16-byte vectors
 #pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
-  for (int s = 0; s < nslab; ++s) {
-    cp_async_wait<NSTAGE - 2>();  // slab s has landed
-    __syncthreads();
-    // refill the buffer that every warp finished reading in step s - 1
-    const int next = s + NSTAGE - 1;
-    if (next < nslab)
-      load_w_slab(w, ws + (next % NSTAGE) * KSLAB * WS_LD, next * KSLAB, f0, F);
-    else
-      cp_async_commit();
-    const __nv_bfloat16* slab = ws + (s % NSTAGE) * KSLAB * WS_LD;
+      for (int half = 0; half < 2; ++half) {
+        named_barrier(bar, WG_THREADS);  // the staged rows before these are stored
+        const int r = wq * 16 + lane / 4;
 #pragma unroll
-    for (int kk = 0; kk < KSLAB; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, xs + rw * 16 * ldx + s * KSLAB + kk, ldx);
+        for (int jn = 0; jn < STG_COLS / 8; ++jn) {
+          const int col = jn * 8 + (lane % 4) * 2;
+          const int i = 4 * (half * STG_COLS / 8 + jn);
+          *reinterpret_cast<__nv_bfloat162*>(stg + r * STG_LD + col) =
+              __floats2bfloat162_rn(acc[i], acc[i + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(stg + (r + 8) * STG_LD + col) =
+              __floats2bfloat162_rn(acc[i + 2], acc[i + 3]);
+        }
+        named_barrier(bar, WG_THREADS);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, slab + kk * WS_LD + (cg + j) * 16, WS_LD);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
+        for (int i = 0; i < WG_ROWS * STG_COLS / 8 / WG_THREADS; ++i) {
+          const int v = t + i * WG_THREADS;
+          const int rr = v / (STG_COLS / 8), cc = (v % (STG_COLS / 8)) * 8;
+          if (row0 + rr < M)
+            *reinterpret_cast<uint4*>(out + (size_t)(row0 + rr) * F + f0 + half * STG_COLS + cc) =
+                *reinterpret_cast<const uint4*>(stg + rr * STG_LD + cc);
+        }
       }
     }
   }
-  __syncthreads();
-  // every warp is past its last read of xs: stage the tile over it
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    wmma::store_matrix_sync(stage + rw * 16 * MAIN_STAGE_LD + (cg + j) * 16, acc[j],
-                            MAIN_STAGE_LD, wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < MAIN_ROWS * MAIN_FCHUNK / 8; idx += THREADS) {
-    int r = idx / (MAIN_FCHUNK / 8);
-    int c = (idx % (MAIN_FCHUNK / 8)) * 8;
-    int gr = row0 + r;
-    if (gr < M) {
-      const float* src = stage + r * MAIN_STAGE_LD + c;
-      __align__(16) __nv_bfloat162 v[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) v[e] = __floats2bfloat162_rn(src[2 * e], src[2 * e + 1]);
-      *reinterpret_cast<uint4*>(out + (size_t)gr * F + f0 + c) =
-          *reinterpret_cast<const uint4*>(v);
-    }
-  }
 }
 
-// ---- 2. moments: s2 tile partials -------------------------------------------
-// Each thread owns MOM_VECS vectors of 8 columns of a MOM_ROWS x TILE strip;
-// its column is the same for all of them (THREADS is a multiple of TILE / 8).
-struct StripRegs {
-  uint4 raw[MOM_VECS];
-};
+// ---- 2. moments: s2 tile partials, s1 partials --------------------------------
+// blockIdx.x enumerates the upper-triangle tile pairs (ti <= tj), blockIdx.y
+// the split of rows. A producer warp brings y for each step of 64 rows by
+// TMA (boxes of 64 rows x 64 channels, 128-byte swizzle) into a ring of
+// RAW_STAGES steps; the consumers apply the affine into chunk-major strips:
+// warp w takes quad w % 4 of strip w / 4 (strip 1 holds tj's channels; on the
+// diagonal it is strip 0 and warps 4-7 only compute). Warpgroup w then
+// accumulates rows [64 w, 64 w + 64) of the tile.
+__global__ void __launch_bounds__(MOM_THREADS, 1)
+ardm_moments_kernel(const __grid_constant__ CUtensorMap ymap, const float* __restrict__ a,
+                    const float* __restrict__ b, float* __restrict__ s1_part,
+                    float* __restrict__ s2_part, int M, int C, int rows_per_split) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* raw = align1024(smem_raw);                 // [RAW_STAGES][2 strips][2 boxes]
+  uint8_t* strips = raw + RAW_STAGES * RAW_BYTES;     // [2 buffers][2 strips][16][64][16 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(strips + 4 * STRIP_BYTES);
+  uint64_t* empty = full + RAW_STAGES;
 
-__device__ __forceinline__ void fetch_strip(const __nv_bfloat16* __restrict__ y,
-                                            StripRegs& regs, int r0, int col0, int r_end,
-                                            int C) {
-#pragma unroll
-  for (int i = 0; i < MOM_VECS; ++i) {
-    int v = threadIdx.x + i * THREADS;
-    int gr = r0 + v / (TILE / 8);
-    int c = (v % (TILE / 8)) * 8;
-    regs.raw[i] = gr < r_end ? *reinterpret_cast<const uint4*>(y + (size_t)gr * C + col0 + c)
-                             : make_uint4(0, 0, 0, 0);
-  }
-}
-
-__device__ __forceinline__ void store_strip(const StripRegs& regs, const float* __restrict__ a,
-                                            const float* __restrict__ b, __nv_bfloat16* dst,
-                                            int r0, int col0, int r_end) {
-  const int c = (threadIdx.x % (TILE / 8)) * 8;  // the same for every vector
-  float a8[8], b8[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    a8[e] = __ldg(a + col0 + c + e);
-    b8[e] = __ldg(b + col0 + c + e);
-  }
-#pragma unroll
-  for (int i = 0; i < MOM_VECS; ++i) {
-    int r = (threadIdx.x + i * THREADS) / (TILE / 8);
-    __align__(16) __nv_bfloat16 xv[8];
-    const __nv_bfloat16* yv = reinterpret_cast<const __nv_bfloat16*>(&regs.raw[i]);
-    bool valid = r0 + r < r_end;  // rows past r_end belong to the next split
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      xv[e] = __float2bfloat16(valid ? affine_relu(__bfloat162float(yv[e]), a8[e], b8[e])
-                                     : 0.f);
-    *reinterpret_cast<uint4*>(dst + r * MOM_LD + c) = *reinterpret_cast<uint4*>(xv);
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-ardm_moments_kernel(const __nv_bfloat16* __restrict__ y, const float* __restrict__ a,
-                    const float* __restrict__ b, float* __restrict__ s2_part, int M,
-                    int C, int rows_per_split) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* xi = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][136]
-  __nv_bfloat16* xj = xi + MOM_ROWS * MOM_LD;                      // [64][136]
-  float* stage = reinterpret_cast<float*>(smem_raw);  // [128][132], after the loop
-
-  // blockIdx.x enumerates the upper-triangle tile pairs (ti <= tj)
   const int T = C / TILE;
   int ti = 0, rem = blockIdx.x;
   while (rem >= T - ti) {
@@ -289,125 +313,202 @@ ardm_moments_kernel(const __nv_bfloat16* __restrict__ y, const float* __restrict
   }
   const int tj = ti + rem;
   const bool diag = ti == tj;
-  const int split = blockIdx.y;
-  const int r_begin = split * rows_per_split;
+  const int r_begin = blockIdx.y * rows_per_split;
   const int r_end = min(M, r_begin + rows_per_split);
+  const int steps = (r_end - r_begin + MOM_ROWS - 1) / MOM_ROWS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  const int warp = threadIdx.x / 32;  // owns output rows [16*warp, 16*warp+16)
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-  StripRegs ri, rj;
-  fetch_strip(y, ri, r_begin, ti * TILE, r_end, C);
-  if (!diag) fetch_strip(y, rj, r_begin, tj * TILE, r_end, C);
-  for (int r0 = r_begin; r0 < r_end; r0 += MOM_ROWS) {
-    __syncthreads();  // the previous rows are consumed
-    store_strip(ri, a, b, xi, r0, ti * TILE, r_end);
-    if (!diag) store_strip(rj, a, b, xj, r0, tj * TILE, r_end);
-    __syncthreads();
-    if (r0 + MOM_ROWS < r_end) {  // next rows in flight during the products
-      fetch_strip(y, ri, r0 + MOM_ROWS, ti * TILE, r_end, C);
-      if (!diag) fetch_strip(y, rj, r0 + MOM_ROWS, tj * TILE, r_end, C);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < RAW_STAGES; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 8);  // one arrival per consumer warp
     }
-    const __nv_bfloat16* xjs = diag ? xi : xj;
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {
+    // producer: the boxes of each step, both strips (one on the diagonal)
+    if (lane == 0) {
+      int st = 0;
+      uint32_t phase = 0;
+      for (int s = 0; s < steps; ++s) {
+        mbar_wait(&empty[st], phase ^ 1);
+        mbar_expect_tx(&full[st], (diag ? 2 : 4) * BOX_BYTES);
+        for (int strip = 0; strip < (diag ? 1 : 2); ++strip)
+          for (int box = 0; box < 2; ++box)
+            tma_load_2d(raw + st * RAW_BYTES + (strip * 2 + box) * BOX_BYTES, &ymap, &full[st],
+                        (strip ? tj : ti) * TILE + box * 64, r_begin + s * MOM_ROWS);
+        if (++st == RAW_STAGES) st = 0, phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4;
+  const int strip = warp / 4;
+  const int j = (warp % 4) * 4 + lane / 8;  // chunk of the strip
+  const int c = (strip ? tj : ti) * TILE + j * 8;
+  const bool stages_strip = !(diag && strip == 1);
+  float a8[8], b8[8], sum8[8];
+  load8(a + c, a8);
+  load8(b + c, b8);
 #pragma unroll
-    for (int k = 0; k < MOM_ROWS; k += 16) {
-      // A = xi^T: element (m, k) = xi[k][m] -> column-major view of xi
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> fa;
-      wmma::load_matrix_sync(fa, xi + k * MOM_LD + warp * 16, MOM_LD);
+  for (int e = 0; e < 8; ++e) sum8[e] = 0.f;
+
+  float acc[64];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, xjs + k * MOM_LD + j * 16, MOM_LD);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  int st = 0;
+  uint32_t phase = 0;
+  for (int s = 0; s < steps; ++s) {
+    uint8_t* buf = strips + (s & 1) * 2 * STRIP_BYTES;
+    const int r0 = r_begin + s * MOM_ROWS;
+    mbar_wait(&full[st], phase);
+    if (stages_strip) {
+      // box (strip, j / 8) holds chunk j % 8 of row r at r * 128 + ((j % 8) ^ (r % 8)) * 16
+      const uint8_t* box = raw + st * RAW_BYTES + (strip * 2 + j / 8) * BOX_BYTES;
+      uint4 v[8];
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {
+        const int r = g * 8 + lane % 8;
+        v[g] = *reinterpret_cast<const uint4*>(box + r * 128 + (((j % 8) ^ (r % 8)) * 16));
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+      if (diag)
+        store_quad<true>(v, a8, b8, sum8, buf, MOM_ROWS, j, r0, r_end, lane);
+      else
+        store_quad<false>(v, a8, b8, sum8, buf + strip * STRIP_BYTES, MOM_ROWS, j, r0, r_end,
+                          lane);
+    } else if (lane == 0) {
+      mbar_arrive(&empty[st]);
+    }
+    if (++st == RAW_STAGES) st = 0, phase ^= 1;
+    fence_proxy_async();
+    named_barrier(1, 2 * WG_THREADS);  // both strips of this step are written
+    const uint32_t xi = smem_u32(buf);
+    const uint32_t xj = diag ? xi : xi + STRIP_BYTES;
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < MOM_ROWS / 16; ++kk)
+      wgmma_m64n128k16<1, 1>(
+          acc, desc_mnmajor_chunks(xi + wg * 8 * MOM_ROWS * 16 + kk * 16 * 16, MOM_ROWS),
+          desc_mnmajor_chunks(xj + kk * 16 * 16, MOM_ROWS), (s | kk) != 0);
+    wgmma_commit();
+    wgmma_wait<0>();  // this step's strips are read before the barrier of step s + 1
+    fence_acc(acc);
+  }
+
+  float* dst = s2_part + (size_t)blockIdx.y * C * C;
+  const int gi = ti * TILE + wg * 64 + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+  for (int jn = 0; jn < TILE / 8; ++jn) {
+    const int col = tj * TILE + jn * 8 + (lane % 4) * 2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float v0 = acc[4 * jn + 2 * h], v1 = acc[4 * jn + 2 * h + 1];
+      const int row = gi + 8 * h;
+      *reinterpret_cast<float2*>(dst + (size_t)row * C + col) = make_float2(v0, v1);
+      if (!diag) {
+        dst[(size_t)col * C + row] = v0;
+        dst[(size_t)(col + 1) * C + row] = v1;
       }
     }
   }
-  __syncthreads();  // every warp is past its last read of xi and xj
+  if (diag && strip == 0) {
+    // the lanes that share a chunk hold 8 rows each: sum them in a fixed order
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-    wmma::store_matrix_sync(stage + warp * 16 * MOM_STAGE_LD + j * 16, acc[j],
-                            MOM_STAGE_LD, wmma::mem_row_major);
-  __syncthreads();
-  float* dst = s2_part + (size_t)split * C * C;
-  for (int idx = threadIdx.x; idx < TILE * TILE; idx += THREADS) {
-    int r = idx / TILE, c = idx % TILE;
-    dst[(size_t)(ti * TILE + r) * C + tj * TILE + c] = stage[r * MOM_STAGE_LD + c];
-  }
-  if (!diag) {
-    for (int idx = threadIdx.x; idx < TILE * TILE; idx += THREADS) {
-      int c = idx / TILE, r = idx % TILE;
-      dst[(size_t)(tj * TILE + c) * C + ti * TILE + r] = stage[r * MOM_STAGE_LD + c];
+    for (int e = 0; e < 8; ++e) {
+      sum8[e] += __shfl_xor_sync(0xffffffffu, sum8[e], 1);
+      sum8[e] += __shfl_xor_sync(0xffffffffu, sum8[e], 2);
+      sum8[e] += __shfl_xor_sync(0xffffffffu, sum8[e], 4);
+    }
+    if (lane % 8 == 0) {
+      float4* d1 = reinterpret_cast<float4*>(s1_part + (size_t)blockIdx.y * C + c);
+      d1[0] = make_float4(sum8[0], sum8[1], sum8[2], sum8[3]);
+      d1[1] = make_float4(sum8[4], sum8[5], sum8[6], sum8[7]);
     }
   }
 }
 
 // ---- 3. reduce: fixed-order sums of the partials -----------------------------
-__global__ void ardm_reduce_kernel(const float* __restrict__ s1_part,
-                                   const float* __restrict__ s2_part,
-                                   float* __restrict__ s1, float* __restrict__ s2,
-                                   int C, int n1, int n2) {
-  const size_t cc = (size_t)C * C;
-  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < cc + C;
-       e += (size_t)gridDim.x * blockDim.x) {
-    float acc = 0.f;
-    if (e < cc) {
-      for (int p = 0; p < n2; ++p) acc += s2_part[(size_t)p * cc + e];
-      s2[e] = acc;
-    } else {
-      size_t c = e - cc;
-      for (int p = 0; p < n1; ++p) acc += s1_part[(size_t)p * C + c];
-      s1[c] = acc;
-    }
+// A CTA takes 32 elements of s2 (or s1) and 8 segments of the partials; the
+// segments' sums are then added in order.
+constexpr int RED_SEGS = 8;
+
+__global__ void __launch_bounds__(32 * RED_SEGS)
+ardm_reduce_kernel(const float* __restrict__ s1_part, const float* __restrict__ s2_part,
+                   float* __restrict__ s1, float* __restrict__ s2, int C, int nparts) {
+  __shared__ float red[RED_SEGS][32];
+  const int s2_blocks = C * C / 32;
+  const bool is2 = blockIdx.x < s2_blocks;
+  const float* part = is2 ? s2_part : s1_part;
+  float* res = is2 ? s2 : s1;
+  const size_t E = is2 ? (size_t)C * C : (size_t)C;
+  const size_t e = (size_t)(is2 ? blockIdx.x : blockIdx.x - s2_blocks) * 32 + threadIdx.x % 32;
+  const int seg = threadIdx.x / 32;
+  const int per = (nparts + RED_SEGS - 1) / RED_SEGS;
+  const int end = min(nparts, (seg + 1) * per);
+  float acc = 0.f;
+#pragma unroll 4
+  for (int p = seg * per; p < end; ++p) acc += part[(size_t)p * E + e];
+  red[seg][threadIdx.x % 32] = acc;
+  __syncthreads();
+  if (seg == 0) {
+    acc = 0.f;
+#pragma unroll
+    for (int g = 0; g < RED_SEGS; ++g) acc += red[g][threadIdx.x];
+    res[e] = acc;
   }
 }
 
 }  // namespace
 
-// y [M, C] bf16, a, b [C] f32, w [C, F] bf16, all contiguous. Outputs out
-// [M, F] bf16, s1 [C] f32, s2 [C, C] f32. Scratch s1_part [ceil(M/64), C] and
-// s2_part [msplit, C, C] f32, with msplit * rows_per_split >= M,
-// rows_per_split a multiple of 64.
+// y [M, C] bf16, a, b [C] f32, wt = W^T [F, C] bf16, all contiguous. Outputs
+// out [M, F] bf16, s1 [C] f32, s2 [C, C] f32. Scratch s1_part [msplit, C] and
+// s2_part [msplit, C, C] f32, with msplit * rows_per_split >= M and
+// rows_per_split a multiple of 64. The main kernel runs `grid` CTAs over
+// ceil(M / 128) * fsplit items; sc divides C, is a multiple of 128 and at most
+// 512, and is C where C <= 512.
 extern "C" int vince_affine_relu_dot_moments_bf16(
-    const void* y, const float* a, const float* b, const void* w, void* out,
-    float* s1, float* s2, float* s1_part, float* s2_part, int M, int C, int F,
-    int msplit, int rows_per_split, void* stream_ptr) {
+    const void* y, const float* a, const float* b, const void* wt, void* out, float* s1,
+    float* s2, float* s1_part, float* s2_part, int M, int C, int F, int grid, int fsplit,
+    int sc, int msplit, int rows_per_split, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (M <= 0 || C <= 0 || F <= 0 || C % TILE || F % MAIN_FCHUNK || C > 1024 ||
-      rows_per_split % MOM_ROWS || (long long)msplit * rows_per_split < M)
+  if (M <= 0 || C <= 0 || F <= 0 || C % TILE || F % BN || grid <= 0 || fsplit <= 0 ||
+      (F / BN) % fsplit || sc <= 0 || sc % TILE || sc > SC_MAX || C % sc ||
+      (C <= SC_MAX && sc != C) || rows_per_split <= 0 || rows_per_split % MOM_ROWS ||
+      (long long)msplit * rows_per_split < M || (long long)(msplit - 1) * rows_per_split >= M)
     return (int)cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(y) % 16 || reinterpret_cast<uintptr_t>(w) % 16 ||
+  if (reinterpret_cast<uintptr_t>(y) % 16 || reinterpret_cast<uintptr_t>(wt) % 16 ||
       reinterpret_cast<uintptr_t>(out) % 16)
     return (int)cudaErrorMisalignedAddress;
-  const __nv_bfloat16* yb = static_cast<const __nv_bfloat16*>(y);
-  const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(w);
-
-  const int nblk = (M + MAIN_ROWS - 1) / MAIN_ROWS;
-  size_t main_smem = main_union_bytes(C) + MAIN_WS_BYTES + MAIN_RED_BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      ardm_main_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)main_smem);
+  CUtensorMap wmap, ymap;
+  int status = hopper_host::map_bf16_sw128(&wmap, wt, F, C, BN);
+  if (!status) status = hopper_host::map_bf16_sw128(&ymap, y, M, C, MOM_ROWS);
+  if (status) return status;
+  int stages = (SMEM_LIMIT - main_fixed_bytes(sc)) / W_STAGE_BYTES;
+  if (stages > MAX_STAGES) stages = MAX_STAGES;
+  if (stages < 2) return (int)cudaErrorInvalidValue;
+  const int smem = main_fixed_bytes(sc) + stages * W_STAGE_BYTES;
+  cudaError_t err =
+      cudaFuncSetAttribute(ardm_main_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ardm_moments_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               MOM_SMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 main_grid(nblk, F / MAIN_FCHUNK);
-  ardm_main_kernel<<<main_grid, THREADS, main_smem, stream>>>(
-      yb, a, b, wb, static_cast<__nv_bfloat16*>(out), s1_part, M, C, F);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
+  ardm_main_kernel<<<grid, THREADS, smem, stream>>>(
+      wmap, static_cast<const __nv_bfloat16*>(y), a, b, static_cast<__nv_bfloat16*>(out), M, C,
+      F, fsplit, sc, stages);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int T = C / TILE;
-  size_t strips = sizeof(__nv_bfloat16) * 2 * MOM_ROWS * MOM_LD;
-  size_t mstage = sizeof(float) * TILE * MOM_STAGE_LD;
-  size_t mom_smem = strips > mstage ? strips : mstage;
-  err = cudaFuncSetAttribute(ardm_moments_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)mom_smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 mgrid(T * (T + 1) / 2, msplit);
-  ardm_moments_kernel<<<mgrid, THREADS, mom_smem, stream>>>(yb, a, b, s2_part, M, C,
-                                                           rows_per_split);
+  ardm_moments_kernel<<<dim3(T * (T + 1) / 2, msplit), MOM_THREADS, MOM_SMEM, stream>>>(
+      ymap, a, b, s1_part, s2_part, M, C, rows_per_split);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  size_t total = (size_t)C * C + C;
-  int rblocks = (int)((total + THREADS - 1) / THREADS);
-  ardm_reduce_kernel<<<rblocks, THREADS, 0, stream>>>(s1_part, s2_part, s1, s2, C, nblk,
-                                                      msplit);
+  ardm_reduce_kernel<<<C * C / 32 + C / 32, 32 * RED_SEGS, 0, stream>>>(s1_part, s2_part, s1, s2,
+                                                                      C, msplit);
   return (int)cudaGetLastError();
 }

@@ -193,9 +193,8 @@ def fused_bn_relu_folded_dot(y, in_bn: BatchNorm, conv: Conv1x1, bn: BatchNorm, 
 
 
 def _kernel_site_supported(y, features: int) -> bool:
-    """The JAX rule, and what the CUDA kernel takes (C <= 1024): a wider site,
-    as stage 4 of a ResNet50 of four times the width, takes the unfused
-    ``folded_dot_bn`` chain like every other unsupported site."""
+    """The JAX rule (M, C and F multiples of 128), which is what the CUDA
+    kernel takes; any other site takes the unfused ``folded_dot_bn`` chain."""
     m = math.prod(y.shape[:-1])
     return m % 128 == 0 and folded_dot_kernel.kernel_supported(m, y.shape[-1], features)
 

@@ -6,10 +6,22 @@ check that compares a whole step against them; nothing selects them silently.
 """
 
 import contextlib
+import functools
 
 import torch
 
 _FORCE_PLAIN = False
+H100_SMS = 132  # the schedules' SM count where no card is asked (the CPU tests)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of the CUDA device that a kernel launches on."""
+    return _sm_count(torch.cuda.current_device() if device.index is None else device.index)
 
 
 @contextlib.contextmanager

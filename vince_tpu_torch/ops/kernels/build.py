@@ -2,8 +2,9 @@
 shared libraries with a plain C interface, and load them with ``ctypes``.
 
 A library is built at first use into ``vince_tpu_torch/_build`` (listed in
-``.gitignore``), named by a hash of its source, so an edited source is rebuilt
-and an unchanged one is loaded as it is. ``build_all`` starts one ``nvcc`` per
+``.gitignore``), named by a hash of its source and of the shared headers
+(``csrc/*.cuh``), so an edited source is rebuilt and an unchanged one is
+loaded as it is. ``build_all`` starts one ``nvcc`` per
 source at once and waits for all of them.
 """
 
@@ -21,7 +22,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-ldl",
 ]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -36,8 +37,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    h = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

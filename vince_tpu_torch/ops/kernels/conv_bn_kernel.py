@@ -20,16 +20,19 @@ they are not carried over.
 """
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from vince_tpu_torch.ops.kernels import build, check_tensor, use_kernel
+from vince_tpu_torch.ops.kernels import H100_SMS, build, check_tensor, sm_count, use_kernel
 
 _FEATURE_TILE = 128  # output features per CTA
-_MAX_POSITIONS = 128  # tile rows × (tile columns + 2) per CTA
+_MAX_POSITIONS = 256  # positions per CTA: four wgmma tiles of 64
 _MAX_TILE_COLS = 30
+_SMEM_LIMIT = 232448  # shared memory a CTA may use
 
 
 def kernel_supported(y_prev_shape, kernel_shape, stride=(1, 1), dilation=(1, 1)) -> bool:
@@ -57,56 +60,146 @@ def _reference(y_prev, a, b, kernel):
             y.float().square().sum(dim=(0, 1, 2)))
 
 
-def _tiling(h: int, w: int):
-    """(rows, columns) of a CTA's tile of output pixels: columns in equal
-    tiles of at most 30, rows in equal bands with rows × (columns + 2) <= 128."""
+class Tile(NamedTuple):
+    rows: int  # th: output rows of a CTA
+    cols: int  # tw: output columns of each image
+    images: int  # k: images side by side (tw = W where k > 1)
+
+
+def _halo_rows(positions: int, pw: int) -> int:
+    """Rows of the halo the kernel stages: 128 or 256 positions' tiles, then
+    the farthest tap (``halo_rows`` in the source)."""
+    return math.ceil(((128 if positions <= 128 else 256) + 2 * pw + 2) / 8) * 8
+
+
+def _smem_bytes(tile: Tile) -> int:
+    """The shared memory a CTA of this tile takes, as the source's
+    ``smem_bytes`` counts it (``chip_smoke.py`` holds the two equal on the
+    card): alignment, 4 filter stages, the halo of 128 channels, 2 staged
+    output tiles, the statistics' partials, the barriers."""
+    pw = 1 + tile.images * (tile.cols + 1)
+    return (1024 + 4 * 16384 + _halo_rows(tile.rows * pw, pw) * 256 + 2 * 64 * 136 * 2
+            + 2 * 2 * 8 * 128 * 4 + 64)
+
+
+def _parts(n: int, h: int, w: int, tile: Tile) -> int:
+    """CTAs over the pixels, each with one row of statistics' partials."""
+    return math.ceil(n / tile.images) * math.ceil(h / tile.rows) * math.ceil(w / tile.cols)
+
+
+def _tiles(n: int, h: int, w: int, f: int, sms: int = H100_SMS):
+    """Every tile of output pixels a CTA may take, with its score: columns in
+    equal tiles of at most 30, then, where a tile is the whole width, k images
+    side by side with one zero column between them, and rows in equal bands,
+    with rows × (1 + k (columns + 1)) <= 256 and a halo that fits in shared
+    memory. The score is the work per SM: waves of CTAs times (wgmma tiles +
+    a quarter of the halo rows over 64, the affine pass), then the tiles in
+    all, then k."""
     tw = math.ceil(w / math.ceil(w / _MAX_TILE_COLS))
-    max_rows = _MAX_POSITIONS // (tw + 2)
-    return math.ceil(h / math.ceil(h / max_rows)), tw
+    fchunks = math.ceil(f / _FEATURE_TILE)
+    for k in range(1, n + 1) if tw == w else [1]:
+        pw = 1 + k * (tw + 1)
+        max_rows = _MAX_POSITIONS // pw
+        if max_rows < 1:
+            break
+        tile = Tile(math.ceil(h / math.ceil(h / min(h, max_rows))), tw, k)
+        if _smem_bytes(tile) > _SMEM_LIMIT:
+            continue
+        ctas = _parts(n, h, w, tile) * fchunks
+        wgmma_tiles = 2 if tile.rows * pw <= 128 else 4  # one or two a warpgroup
+        per_cta = wgmma_tiles + 0.25 * _halo_rows(tile.rows * pw, pw) / 64
+        yield (math.ceil(ctas / sms) * per_cta, ctas * wgmma_tiles, k), tile
 
 
-def _launch(y_prev, a, b, kernel):
+@functools.lru_cache(maxsize=None)
+def _tiling(n: int, h: int, w: int, f: int, sms: int = H100_SMS) -> Tile:
+    """The tile of least score (``_tiles``)."""
+    best = min(_tiles(n, h, w, f, sms), default=None)
+    if best is None:
+        raise ValueError(f"no tile fits a CTA at H={h}, W={w}")
+    return best[1]
+
+
+def output_pixels(n: int, h: int, w: int, tile: Tile):
+    """(CTA, image, row, column) of each pixel a CTA stores, in the kernel's
+    order of CTAs and positions (one slice of features): a Python model of
+    the source's index arithmetic."""
+    th, tw, k = tile
+    pw = 1 + k * (tw + 1)
+    ctiles, bands = math.ceil(w / tw), math.ceil(h / th)
+    for bid in range(math.ceil(n / k) * bands * ctiles):
+        w0 = (bid % ctiles) * tw
+        h0 = (bid // ctiles % bands) * th
+        n0 = bid // ctiles // bands * k
+        for p in range(th * pw):
+            hl, wl = divmod(p, pw)
+            slot, lc = divmod(wl, tw + 1)
+            if lc < tw and slot < k and h0 + hl < h and w0 + lc < w and n0 + slot < n:
+                yield bid, n0 + slot, h0 + hl, w0 + lc
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    fn = build.load("affine_conv3x3_stats").vince_affine_conv3x3_stats_bf16
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _shapes(y_prev, a, b, kernel):
+    """(N, H, W, C, F) of inputs the kernel takes; raises on any other."""
     dev = y_prev.device
     check_tensor(y_prev, "y_prev", torch.bfloat16, 4, dev)
     check_tensor(a, "a", torch.float32, 1, dev)
     check_tensor(b, "b", torch.float32, 1, dev)
-    check_tensor(kernel, "kernel", torch.bfloat16, 4, dev)
     n, h, w, c = y_prev.shape
+    if kernel.dim() != 4 or kernel.device != dev:
+        raise ValueError(f"kernel must be a 4-D tensor on {dev}")
     f = kernel.shape[3]
     if (a.shape[0] != c or b.shape[0] != c or n == 0 or f == 0
             or not kernel_supported(y_prev.shape, kernel.shape)):
         raise ValueError(f"unsupported shapes y_prev {tuple(y_prev.shape)}, "
                          f"kernel {tuple(kernel.shape)}")
+    return n, h, w, c, f
+
+
+def _launch_with(y_prev, a, b, kernel, tile: Tile):
+    """The kernel on the tile ``tile``, uncounted (a measurement may try
+    other tiles through it)."""
+    n, h, w, c, f = _shapes(y_prev, a, b, kernel)
+    dev = y_prev.device
     fp = math.ceil(f / _FEATURE_TILE) * _FEATURE_TILE
-    kmat = kernel.reshape(9 * c, f)
-    if fp != f:  # zero columns, so that a CTA's filter slabs need no mask
-        kmat = F.pad(kmat, (0, fp - f))
-    th, tw = _tiling(h, w)
-    parts = n * math.ceil(h / th) * math.ceil(w / tw)
+    # the filter as [F, 9C] bf16, K-major for TMA: one copy, which casts too
+    kt = torch.empty(f, 9 * c, device=dev, dtype=torch.bfloat16).copy_(
+        kernel.reshape(9 * c, f).t())
+    parts = _parts(n, h, w, tile)
     y = torch.empty(n, h, w, f, device=dev, dtype=torch.bfloat16)
     s1 = torch.empty(f, device=dev, dtype=torch.float32)
     s2 = torch.empty_like(s1)
     s1_part = torch.empty(parts, fp, device=dev, dtype=torch.float32)
     s2_part = torch.empty_like(s1_part)
-    fn = build.load("affine_conv3x3_stats").vince_affine_conv3x3_stats_bf16
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    status = fn(y_prev.data_ptr(), a.data_ptr(), b.data_ptr(), kmat.data_ptr(), y.data_ptr(),
-                s1.data_ptr(), s2.data_ptr(), s1_part.data_ptr(), s2_part.data_ptr(),
-                n, h, w, c, f, fp, th, tw, torch.cuda.current_stream(dev).cuda_stream)
+    status = _entry()(y_prev.data_ptr(), a.data_ptr(), b.data_ptr(), kt.data_ptr(),
+                      y.data_ptr(), s1.data_ptr(), s2.data_ptr(), s1_part.data_ptr(),
+                      s2_part.data_ptr(), n, h, w, c, f, *tile, parts,
+                      torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, "affine_conv3x3_stats")
-    affine_conv3x3_stats.launches += 1
     return y, s1, s2
+
+
+def _launch(y_prev, a, b, kernel):
+    n, h, w, _, f = _shapes(y_prev, a, b, kernel)
+    result = _launch_with(y_prev, a, b, kernel, _tiling(n, h, w, f, sm_count(y_prev.device)))
+    affine_conv3x3_stats.launches += 1
+    return result
 
 
 def affine_conv3x3_stats_forward(y_prev, a, b, kernel):
     """The forward: the kernel on a CUDA tensor, the plain version on the CPU."""
     a, b = a.float().contiguous(), b.float().contiguous()
-    kernel = kernel.to(y_prev.dtype).contiguous()
     if use_kernel(y_prev):
         return _launch(y_prev.contiguous(), a, b, kernel)
     affine_conv3x3_stats.plain_calls += 1
-    return _reference(y_prev, a, b, kernel)
+    return _reference(y_prev, a, b, kernel.to(y_prev.dtype))
 
 
 class _AffineConv3x3Stats(torch.autograd.Function):
