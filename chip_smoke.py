@@ -7,8 +7,9 @@ Phases:
   1. build every CUDA kernel of the port from ``vince_tpu_torch/csrc``;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes of the training step (forward and gradient), and time the kernel,
-     the plain version and one PyTorch library call computing the same function;
-     then hold the forward at a few shapes off the main path (ragged ones);
+     the plain version and one PyTorch library call computing the same function
+     (K1 also at a queue of 262144); then hold the forward at a few shapes off
+     the main path (ragged ones);
   3. run the VINCE pretraining step (batch 128 = 32 videos x 4 frames, 224x224
      crops of 256x256 uint8 canvases, queue 65536, embeddings 128, bf16, fused
      InfoNCE queue kernel) for 2 warm-up and 5 timed steps, counting each
@@ -84,41 +85,44 @@ def time_ms(fn, iters=20, warmup=3, flushes=4):
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
-def launch_ms(fn, iters=10):
+def launch_ms(fn, iters=10, attempts=3):
     """Mean device time of each kernel that ``fn`` launches once per call, by
     kernel name (its first word that ends in ``_kernel``), from a
     torch.profiler trace of ``iters`` calls, each after the flush of
-    ``time_ms``; the flush's own kernels are left out by name. Raises if a
-    kernel's launches in the trace are not ``iters``."""
+    ``time_ms``. Every call starts with the flush, so the trace's first kernel
+    is the flush's, and all launches of that name are left out. A trace that
+    lost launches (a name with other than ``iters``, or a flush with other
+    than ``4 * iters``) is taken again, up to ``attempts`` traces in all;
+    then it raises."""
     from torch.profiler import ProfilerActivity, profile
-
-    def kernels(prof):
-        return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)]
 
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        flush.zero_()
-        torch.cuda.synchronize()
-    flush_names = {e.name for e in kernels(prof)}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            for _ in range(4):
-                flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    spans = {}
-    for e in kernels(prof):
-        if e.name not in flush_names:
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                for _ in range(4):
+                    flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        launches = sorted((e for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA
+                           and not getattr(e, "is_user_annotation", False)),
+                          key=lambda e: e.time_range.start)
+        spans = {"flush": []}
+        for e in launches:
             short = re.search(r"\w+_kernel", e.name)
-            spans.setdefault(short.group(0) if short else e.name, []).append(
-                (e.time_range.end - e.time_range.start) / 1e3)
-    for name, times in spans.items():
-        if len(times) != iters:
-            raise RuntimeError(f"{name}: {len(times)} launches in {iters} calls")
-    return {name: sum(times) / iters for name, times in spans.items()}
+            name = "flush" if e.name == launches[0].name else short.group(0) if short else e.name
+            spans.setdefault(name, []).append((e.time_range.end - e.time_range.start) / 1e3)
+        fault = "; ".join(f"{name}: {len(times)} launches in {iters} calls"
+                          for name, times in spans.items()
+                          if len(times) != (4 * iters if name == "flush" else iters))
+        if not fault:
+            del spans["flush"]
+            return {name: sum(times) / iters for name, times in spans.items()}
+        log(f"  (trace {attempt} of {attempts}: {fault})")
+    raise RuntimeError(fault)
 
 
 def bound(bytes_moved, ops, peak_ops):
@@ -142,19 +146,72 @@ def compare(name, got, ref, rtol, atol_frac):
     return max_err
 
 
+def same_bits(name, first, second):
+    """Two calls on the same inputs give the same bits (fixed-order sums)."""
+    if not all(torch.equal(x, y) for x, y in zip(first, second)):
+        fail(f"{name} differs between two calls on the same inputs")
+    log(f"  {name}: bit-identical in two calls")
+
+
+def queue_inputs(g, dev, b, k, d):
+    """Unit rows of q [b, d] and of the queue [k, d], as the loss hands them to K1."""
+    norm = lambda x: x / x.norm(dim=-1, keepdim=True)
+    return (norm(torch.randn(b, d, generator=g, device=dev)),
+            norm(torch.randn(k, d, generator=g, device=dev)))
+
+
+def compare_queue_logsumexp(k1, q, queue, tau):
+    """(m, S, W) of the kernel against the plain version; returns the errors."""
+    got = k1.queue_logsumexp_forward(q, queue, tau)
+    ref = k1._reference_queue_logsumexp(q, queue, tau)
+    return [compare(name, x, r, rtol, atol) for name, x, r, rtol, atol in
+            zip("mSW", got, ref, (1e-5, 1e-4, 1e-4), (1e-6, 1e-6, 1e-5))]
+
+
+def time_queue_logsumexp(k1, q, queue, tau):
+    """The kernel (whole and each launch), its plain version, the library call
+    and the bound at one shape, in ms."""
+    b, d = q.shape
+    k = queue.shape[0]
+
+    def library():
+        logits = q @ queue.T / tau
+        return torch.logsumexp(logits, -1), torch.softmax(logits, -1) @ queue
+
+    times = {"ms": time_ms(lambda: k1.queue_logsumexp_forward(q, queue, tau)),
+             "plain_ms": time_ms(lambda: k1._reference_queue_logsumexp(q, queue, tau)),
+             "library_ms": time_ms(library)}
+    split = launch_ms(lambda: k1.queue_logsumexp_forward(q, queue, tau))
+    times["partial_ms"], times["combine_ms"] = split["qlse_partial_kernel"], split[
+        "qlse_combine_kernel"]
+    bytes_moved = 4 * (b * d + k * d + 2 * b + b * d)
+    ops = 4 * b * k * d + b * k  # two products of 2*b*k*d, plus one exp per logit
+    times["bound_ms"], by = bound(bytes_moved, ops, F32_FLOPS)
+    log("  times (cold L2): kernel {ms:.4f} ms (launches: partial {partial_ms:.4f}, combine "
+        "{combine_ms:.4f}), plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+        "{bound_ms:.4f} ms".format(**times) + f" ({by}, f32), kernel/bound "
+        f"{times['ms'] / times['bound_ms']:.3f}")
+    return times, by
+
+
 def check_queue_logsumexp(dev):
+    from vince_tpu_torch.ops.kernels import build
     from vince_tpu_torch.ops.kernels import infonce_kernel as k1
 
+    smem = build.load("queue_logsumexp").vince_queue_logsumexp_smem_bytes
+    for d in (64, 72, 128, 256):
+        if smem(d) != k1._smem_bytes(d):
+            fail(f"K1 shared memory at D={d}: {smem(d)} bytes in the source, "
+                 f"{k1._smem_bytes(d)} in the Python schedule")
     b, k, d, tau = 128, 65536, 128, 0.07
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(0)
-    norm = lambda x: x / x.norm(dim=-1, keepdim=True)
-    q = norm(torch.randn(b, d, generator=g, device=dev))
-    queue = norm(torch.randn(k, d, generator=g, device=dev))
-    log(f"K1 queue_logsumexp: q [{b},{d}] f32, queue [{k},{d}] f32, tau={tau}")
-    m, s, w = k1.queue_logsumexp_forward(q, queue, tau)
-    m_r, s_r, w_r = k1._reference_queue_logsumexp(q, queue, tau)
-    errs = [compare("m", m, m_r, 1e-5, 1e-6), compare("S", s, s_r, 1e-4, 1e-6),
-            compare("W", w, w_r, 1e-4, 1e-5)]
+    q, queue = queue_inputs(g, dev, b, k, d)
+    log(f"K1 queue_logsumexp: q [{b},{d}] f32, queue [{k},{d}] f32, tau={tau}, "
+        f"chunking (row blocks, chunks, tiles a chunk) {k1._chunking(b, k, d, sms)}")
+    errs = compare_queue_logsumexp(k1, q, queue, tau)
+    same_bits("m, S, W", k1.queue_logsumexp_forward(q, queue, tau),
+              k1.queue_logsumexp_forward(q, queue, tau))
     # gradient: the kernel's autograd Function against autograd through the
     # materialised logits (m detached, as in the loss)
     r = torch.rand(b, generator=g, device=dev)
@@ -164,37 +221,23 @@ def check_queue_logsumexp(dev):
     logits = qp @ queue.T / tau
     (torch.exp(logits - logits.max(-1, keepdim=True).values.detach()).sum(-1) * r).sum().backward()
     errs.append(compare("dq", qk.grad, qp.grad, 1e-4, 1e-5))
-
-    def library():
-        logits = q @ queue.T / tau
-        return torch.logsumexp(logits, -1), torch.softmax(logits, -1) @ queue
-
-    ms = time_ms(lambda: k1.queue_logsumexp_forward(q, queue, tau))
-    plain_ms = time_ms(lambda: k1._reference_queue_logsumexp(q, queue, tau))
-    library_ms = time_ms(library)
-    bytes_moved = 4 * (b * d + k * d + 2 * b + b * d)
-    ops = 4 * b * k * d + b * k  # two products of 2*b*k*d, plus one exp per logit
-    bound_ms, bound_by = bound(bytes_moved, ops, F32_FLOPS)
-    log(f"  times (cold L2): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, f32)")
+    times, bound_by = time_queue_logsumexp(k1, q, queue, tau)
+    # a queue of 262144, for which the JAX solver turns the kernel on by itself
+    k_long = 262144
+    q, queue = queue_inputs(g, dev, b, k_long, d)
+    log(f"K1 at queue [{k_long},{d}]: chunking {k1._chunking(b, k_long, d, sms)}")
+    errs += compare_queue_logsumexp(k1, q, queue, tau)
+    long_times, _ = time_queue_logsumexp(k1, q, queue, tau)
     return {"name": "queue_logsumexp", "route": "cuda",
             "source": "vince_tpu_torch/csrc/queue_logsumexp.cu",
             "replaces": "vince_tpu/ops/pallas/infonce_kernel.py:88",
-            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "check": "ok"}
+            "max_abs_err": max(errs), **times, "bound_by": bound_by,
+            f"at_k_{k_long}": long_times, "check": "ok"}
 
 
 # the three K2 sites of ResNet50 at batch 128, 224x224: (M, C, F)
 K2_SHAPES = [(128 * 28 * 28, 128, 512), (128 * 14 * 14, 256, 1024), (128 * 7 * 7, 512, 2048)]
 K2_SITES = [4, 6, 3]  # sites of each shape per forward
-
-
-def same_bits(name, first, second):
-    """Two calls on the same inputs give the same bits (fixed-order sums)."""
-    if not all(torch.equal(x, y) for x, y in zip(first, second)):
-        fail(f"{name} differs between two calls on the same inputs")
-    log(f"  {name}: bit-identical in two calls")
 
 
 def check_k2_forward(k2, y, a, b, w):
@@ -530,7 +573,8 @@ def check_affine_conv3x3_stats(dev):
 
 
 def check_other_shapes(dev):
-    """Shapes off the main path: ragged B, K and D for K1, which masks them;
+    """Shapes off the main path: ragged B, K and D for K1, which masks them
+    (one row, two row blocks, fewer keys than a tile, D = 64, 72 and 256);
     rows that are not a multiple of the block, C that is not a power of two,
     C = 1152 and 2048 for K2, and the bottleneck of stage 4 at four times the
     width (C = 2048) through the module; odd N, H != W, C % 8 != 0, odd
@@ -544,13 +588,13 @@ def check_other_shapes(dev):
     from vince_tpu_torch.ops.kernels import plain_versions
 
     g = torch.Generator(device=dev).manual_seed(2)
-    for b, k, d in [(37, 1000, 72)]:
-        log(f"K1 at q [{b},{d}], queue [{k},{d}]")
-        q = torch.nn.functional.normalize(torch.randn(b, d, generator=g, device=dev), dim=-1)
-        queue = torch.nn.functional.normalize(torch.randn(k, d, generator=g, device=dev), dim=-1)
-        for name, x, r in zip("mSW", k1.queue_logsumexp_forward(q, queue, 0.07),
-                              k1._reference_queue_logsumexp(q, queue, 0.07)):
-            compare(name, x, r, 1e-4, 1e-5)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # one row; two row blocks; one tile and one key; fewer keys than a tile;
+    # one key; D = 64 and 256 (blocks of 64 rows); D that is no multiple of 4
+    for b, k, d in [(1, 4096, 128), (200, 65536, 128), (128, 65, 128), (7, 40, 128),
+                    (5, 1, 128), (128, 4096, 64), (96, 3000, 256), (37, 1000, 72)]:
+        log(f"K1 at q [{b},{d}], queue [{k},{d}]: chunking {k1._chunking(b, k, d, sms)}")
+        compare_queue_logsumexp(k1, *queue_inputs(g, dev, b, k, d), 0.07)
     # rows no multiple of the blocks; C that is no power of two; C above the
     # 512 channels that the main kernel keeps (rebuilt per F chunk); F split
     for m, c, f in [(200, 128, 256), (200, 384, 256), (130, 768, 128), (200, 1152, 384),

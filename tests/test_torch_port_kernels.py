@@ -59,6 +59,21 @@ def test_queue_logsumexp_vjp_matches_jax():
     np.testing.assert_allclose(qt.grad.numpy(), np.asarray(g_jax), rtol=1e-4, atol=1e-6)
 
 
+def test_queue_logsumexp_plain_matches_the_pallas_kernel_in_interpret_mode():
+    """The plain version against the TPU kernel itself, run as the JAX package's
+    own test runs it on the CPU (8 rows x 256 keys a block, interpret mode):
+    m to rtol 1e-5, S to 1e-4 and W to 1e-4 (atol 1e-5), the tolerances that
+    ``tests/test_pallas_infonce.py`` holds the kernel to against its reference
+    (f32 sums over 1024 keys in another order and blocked)."""
+    q, queue = _queue_data(b=16, d=128, k=1024)
+    m_ref, s_ref, w_ref = jk1._pallas_queue_logsumexp(
+        jnp.asarray(q), jnp.asarray(queue), 0.07, 8, 256, interpret=True)
+    m, s, w = tk1.queue_logsumexp_forward(torch.from_numpy(q), torch.from_numpy(queue), 0.07)
+    np.testing.assert_allclose(m.numpy(), np.asarray(m_ref), rtol=1e-5)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_ref), rtol=1e-4)
+    np.testing.assert_allclose(w.numpy(), np.asarray(w_ref), rtol=1e-4, atol=1e-5)
+
+
 @pytest.mark.parametrize("output", ["out", "s1", "s2"])
 def test_affine_relu_dot_moments_plain_matches_jax_reference(output):
     y, a, b, w = _fold_data()

@@ -10,15 +10,14 @@ a buffer and gets no gradient; m is returned detached, so the only cotangent is
 """
 
 import ctypes
+import functools
 import math
 
 import torch
 
-from vince_tpu_torch.ops.kernels import build, check_tensor, use_kernel
+from vince_tpu_torch.ops.kernels import H100_SMS, build, check_tensor, sm_count, use_kernel
 
-_BLOCK_ROWS = 64
-_BLOCK_KEYS = 64
-_TARGET_CTAS = 264  # two CTAs on each of the H100's 132 SMs
+_BLOCK_KEYS = 64  # keys per tile of the queue
 _MAX_D = 256
 
 
@@ -30,12 +29,38 @@ def _reference_queue_logsumexp(q, queue, temperature):
     return m, p.sum(dim=-1), p @ queue.float()
 
 
-def _chunking(b: int, k: int):
+def _block_rows(d: int) -> int:
+    """Rows of q a CTA holds: 16 row groups of 8 rows, of 4 above 128 features."""
+    return 128 if d <= 128 else 64
+
+
+def _smem_bytes(d: int) -> int:
+    """Shared memory of the partial kernel (the source's count): q [rows][DP+4],
+    two key tiles [64][DP+4] and p [64][rows+4] in f32, DP = D padded to 64,
+    128 or 256."""
+    dp = 64 if d <= 64 else 128 if d <= 128 else 256
+    rows = _block_rows(d)
+    return 4 * (rows * (dp + 4) + 2 * _BLOCK_KEYS * (dp + 4) + _BLOCK_KEYS * (rows + 4))
+
+
+def _chunking(b: int, k: int, d: int, sms: int = H100_SMS):
+    """(row blocks, chunks, tiles a chunk): the queue's 64-key tiles split into
+    chunks so that the CTAs, one per (row block, chunk), come to about one per
+    SM; every chunk holds at least one tile, and every tile a valid key."""
     tiles = math.ceil(k / _BLOCK_KEYS)
-    row_blocks = math.ceil(b / _BLOCK_ROWS)
-    nchunks = max(1, min(tiles, math.ceil(_TARGET_CTAS / row_blocks)))
+    row_blocks = math.ceil(b / _block_rows(d))
+    nchunks = max(1, min(tiles, sms // row_blocks))
     tiles_per_chunk = math.ceil(tiles / nchunks)
-    return math.ceil(tiles / tiles_per_chunk), tiles_per_chunk
+    return row_blocks, math.ceil(tiles / tiles_per_chunk), tiles_per_chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    fn = build.load("queue_logsumexp").vince_queue_logsumexp_f32
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _launch(q, queue, temperature):
@@ -45,21 +70,17 @@ def _launch(q, queue, temperature):
     k = queue.shape[0]
     if queue.shape[1] != d or d > _MAX_D or b == 0 or k == 0:
         raise ValueError(f"unsupported shapes q {tuple(q.shape)}, queue {tuple(queue.shape)}")
-    nchunks, tiles_per_chunk = _chunking(b, k)
+    _, nchunks, tiles_per_chunk = _chunking(b, k, d, sm_count(q.device))
     m = torch.empty(b, device=q.device, dtype=torch.float32)
     s = torch.empty_like(m)
     w = torch.empty_like(q)
-    m_part = torch.empty(nchunks, b, device=q.device, dtype=torch.float32)
+    m_part = torch.empty(b, nchunks, device=q.device, dtype=torch.float32)
     s_part = torch.empty_like(m_part)
     w_part = torch.empty(nchunks, b, d, device=q.device, dtype=torch.float32)
-    fn = build.load("queue_logsumexp").vince_queue_logsumexp_f32
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    status = fn(q.data_ptr(), queue.data_ptr(), m.data_ptr(), s.data_ptr(), w.data_ptr(),
-                m_part.data_ptr(), s_part.data_ptr(), w_part.data_ptr(), b, k, d,
-                1.0 / temperature, nchunks, tiles_per_chunk,
-                torch.cuda.current_stream(q.device).cuda_stream)
+    status = _entry()(q.data_ptr(), queue.data_ptr(), m.data_ptr(), s.data_ptr(), w.data_ptr(),
+                      m_part.data_ptr(), s_part.data_ptr(), w_part.data_ptr(), b, k, d,
+                      1.0 / temperature, nchunks, tiles_per_chunk,
+                      torch.cuda.current_stream(q.device).cuda_stream)
     build.check(status, "queue_logsumexp")
     queue_logsumexp.launches += 1
     return m, s, w
