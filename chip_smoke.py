@@ -16,8 +16,20 @@ Phases:
      kernel's launches, once with a ResNet50 (fused bn2->relu->conv3 kernel)
      and once with an EfficientNet-B0 (depthwise kernel, forward and dgrad);
   4. after each, run one more step from the same state and batch through the
-     plain versions and compare the loss and the updated weights;
-  5. call the stand-alone op ``affine_conv3x3_stats`` (no model uses it),
+     plain versions and compare the loss and the updated weights (and once
+     more through the kernels, to print the eager step's own spread);
+  5. for each backbone, the captured train step (one CUDA graph) against the
+     eager step from two states made from one seed, over 5 batches (3 eager
+     warm-up calls, the call that captures and replays, one replay; cuDNN
+     deterministic on both sides), with the launches counted at the capture
+     and none at a replay; then a graph captured anew under cuDNN's defaults
+     and 5 timed replays, beside the eager timing of phase 3; the same
+     comparison with LARS for the ResNet50;
+  6. for each backbone, the eval, key-prefill, embed and panel steps once
+     each, with their launches counted, the state bit-identical before and
+     after each, and the eval step against the eval step through the plain
+     versions;
+  7. call the stand-alone op ``affine_conv3x3_stats`` (no model uses it),
      forward and backward, at its three shapes.
 
 The line before the last is a JSON object with one entry per kernel; the last
@@ -671,19 +683,28 @@ def profile_step(step, state, batch, path):
         wall = (time.perf_counter() - t0) * 1e3
     # device busy time: the union of the kernels' intervals (annotation rows
     # repeat the time of the kernels under them, so they are left out)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False))
     busy_us, end = 0.0, float("-inf")
     for s, e in spans:
         busy_us += max(0.0, e - max(s, end))
         end = max(end, e)
+    # the device's idle time before its first kernel (the host's work ahead of
+    # it: draws, copies, launches), between kernels, and after its last
+    first_host = min(e.time_range.start for e in events)
+    last_host = max(e.time_range.end for e in events)
+    idle = ((spans[0][0] - first_host) / 1e3, (end - spans[0][0] - busy_us) / 1e3,
+            max(0.0, last_host - end) / 1e3)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
         f.write(f"one step: {wall:.3f} ms wall, {busy_us / 1e3:.3f} ms device busy\n")
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=80))
     log(f"  profile: {wall:.3f} ms wall, {busy_us / 1e3:.3f} ms device busy, "
-        f"busy share {busy_us / 1e3 / wall:.3f}, {len(spans)} kernels; table in {path}")
+        f"busy share {busy_us / 1e3 / wall:.3f}, {len(spans)} kernels; device idle "
+        "{:.3f} ms before the first kernel, {:.3f} between kernels, {:.3f} after the "
+        "last; table in {}".format(*idle, path))
     for e in prof.key_averages():  # the port's own kernels
         own = re.search(r"(ardm|qlse|acs|dw)_\w+", e.key)
         if own and e.device_type == torch.autograd.DeviceType.CUDA:
@@ -709,43 +730,75 @@ TRAIN_PHASES = {
 }
 
 
-def run_train(dev, backbone, steps=5, warmup=2, profile_path=None):
-    from vince_tpu_torch.ops.kernels import plain_versions
+BATCH_SIZE, CANVAS = 128, 256
+
+
+def wrappers():
+    """The kernels' wrappers by name; each counts its launches and plain calls."""
     from vince_tpu_torch.ops.kernels.conv_bn_kernel import affine_conv3x3_stats
     from vince_tpu_torch.ops.kernels.depthwise_kernel import depthwise_conv, depthwise_wgrad
     from vince_tpu_torch.ops.kernels.folded_dot_kernel import affine_relu_dot_moments
     from vince_tpu_torch.ops.kernels.infonce_kernel import queue_logsumexp
-    from vince_tpu_torch.solvers.vince_step import (
-        SourceSpec, VinceConfig, build_vince_optimizer, init_vince_state, make_train_step_fn)
 
-    phase = TRAIN_PHASES[backbone]
-    wrappers = {"queue_logsumexp": queue_logsumexp,
-                "affine_relu_dot_moments": affine_relu_dot_moments,
-                "depthwise_conv": depthwise_conv, "depthwise_wgrad": depthwise_wgrad}
-    batch_size, canvas = 128, 256
-    cfg = VinceConfig(
-        sources=(SourceSpec("YT", batch_size=batch_size, num_frames=4,
+    return {"queue_logsumexp": queue_logsumexp,
+            "affine_relu_dot_moments": affine_relu_dot_moments,
+            "depthwise_conv": depthwise_conv, "depthwise_wgrad": depthwise_wgrad,
+            "affine_conv3x3_stats": affine_conv3x3_stats}
+
+
+def reset_counts():
+    for w in wrappers().values():
+        w.launches = w.plain_calls = 0
+
+
+def read_counts():
+    """(launches by kernel, plain calls in all) since the last reset; kernels
+    that did not launch are left out."""
+    ws = wrappers()
+    return ({name: w.launches for name, w in ws.items() if w.launches},
+            sum(w.plain_calls for w in ws.values()))
+
+
+def expect_counts(what, expected):
+    launches, plain = read_counts()
+    expected = {k: v for k, v in expected.items() if v}
+    log(f"  {what}: launches {launches}, plain calls {plain}")
+    if launches != expected or plain != 0:
+        fail(f"{what}: launch counts {launches} with {plain} plain calls, expected {expected} "
+             f"and none")
+    return launches
+
+
+def train_config(backbone):
+    from vince_tpu_torch.solvers.vince_step import SourceSpec, VinceConfig
+
+    return VinceConfig(
+        sources=(SourceSpec("YT", batch_size=BATCH_SIZE, num_frames=4,
                             transform="StandardVideoTransform", source_id=1),),
         backbone=backbone, embed_size=128, image_size=224, queue_size=65536,
         temperature=0.07, momentum=0.999, compute_dtype=torch.bfloat16, shuffle_bn=True,
         bn_fold="expand", jitter_order="torchvision", use_fused_infonce=True,
-        **phase["options"])
-    opt = build_vince_optimizer(0.03)
-    log(f"train: {backbone} b=128 (32 videos x 4 frames) 224x224 from 256x256 uint8, "
-        f"q=65536, embed 128, bf16, {phase['label']}, SGD lr 0.03")
-    state = init_vince_state(0, cfg, opt, device=dev)
-    step = make_train_step_fn(cfg, opt)
-    host = np.random.RandomState(0).randint(0, 256, (batch_size, canvas, canvas, 3), np.uint8)
-    batch = ({"data": torch.from_numpy(host).to(dev),
-              "queue_data": torch.from_numpy(host[::-1].copy()).to(dev)},)
-    for i in range(warmup):
-        state, metrics = step(state, batch, 0)
-        log(f"  warm-up step {i}: loss {metrics['loss/total_loss'].item():.6f}")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
+        **TRAIN_PHASES[backbone]["options"])
 
-    for w in (*wrappers.values(), affine_conv3x3_stats):
-        w.launches = w.plain_calls = 0
+
+def make_batch(dev, seed=0):
+    """One source's uint8 canvases [128, 256, 256, 3] from ``seed``: ``data``
+    and, reversed, ``queue_data``."""
+    host = np.random.RandomState(seed).randint(0, 256, (BATCH_SIZE, CANVAS, CANVAS, 3),
+                                               np.uint8)
+    return ({"data": torch.from_numpy(host).to(dev),
+             "queue_data": torch.from_numpy(host[::-1].copy()).to(dev)},)
+
+
+def time_steps(step, state, batch, steps):
+    """Host clock around each of ``steps`` steps, each ending in a
+    synchronise; (median ms, every step's ms, the losses, peak GiB). The peak
+    is of the memory the allocator holds (reserved), after its cache is
+    emptied: a replayed graph takes its intermediates from the graph's pool
+    without an allocation, so the peak allocated misses them."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     losses, step_ms = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -753,22 +806,44 @@ def run_train(dev, backbone, steps=5, warmup=2, profile_path=None):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(metrics["loss/total_loss"])
-    launches = {name: w.launches for name, w in wrappers.items()}
-    plain_calls = sum(w.plain_calls for w in wrappers.values())
     losses = [float(x) for x in losses]
-    for i, loss in enumerate(losses):
-        log(f"  step {i}: loss {loss:.6f}")
-    ms_step = float(np.median(step_ms))
-    log(f"  {ms_step:.3f} ms/step (median of {steps}; each: "
-        f"{', '.join(f'{t:.3f}' for t in step_ms)}), {batch_size / ms_step * 1e3:.2f} frames/s, "
-        f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
-    log(f"  launches in {steps} steps: {launches}; plain calls: {plain_calls}")
     if not all(math.isfinite(x) for x in losses):
         fail("non-finite loss")
-    expected = {name: n * steps for name, n in phase["per_step"].items()}
-    if launches != expected or plain_calls != 0:
-        fail(f"launch counts {launches} with {plain_calls} plain calls, expected {expected} "
-             f"and none ({phase['why']})")
+    log(f"    peak allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return (float(np.median(step_ms)), step_ms, losses,
+            torch.cuda.max_memory_reserved() / 2**30)
+
+
+def log_times(what, ms_step, step_ms, peak):
+    log(f"  {what}: {ms_step:.3f} ms/step (median of {len(step_ms)}; each: "
+        f"{', '.join(f'{t:.3f}' for t in step_ms)}), {BATCH_SIZE / ms_step * 1e3:.2f} frames/s, "
+        f"peak memory reserved {peak:.3f} GiB")
+
+
+def run_train(dev, backbone, steps=5, warmup=2, profile_path=None):
+    from vince_tpu_torch.ops.kernels import plain_versions
+    from vince_tpu_torch.solvers.vince_step import (
+        build_vince_optimizer, init_vince_state, make_train_step_fn)
+
+    phase = TRAIN_PHASES[backbone]
+    cfg = train_config(backbone)
+    opt = build_vince_optimizer(0.03)
+    log(f"train: {backbone} b=128 (32 videos x 4 frames) 224x224 from 256x256 uint8, "
+        f"q=65536, embed 128, bf16, {phase['label']}, SGD lr 0.03")
+    state = init_vince_state(0, cfg, opt, device=dev)
+    step = make_train_step_fn(cfg, opt)
+    batch = make_batch(dev)
+    for i in range(warmup):
+        state, metrics = step(state, batch, 0)
+        log(f"  warm-up step {i}: loss {metrics['loss/total_loss'].item():.6f}")
+
+    reset_counts()
+    ms_step, step_ms, losses, peak = time_steps(step, state, batch, steps)
+    for i, loss in enumerate(losses):
+        log(f"  step {i}: loss {loss:.6f}")
+    log_times("eager", ms_step, step_ms, peak)
+    launches = expect_counts(f"{steps} eager steps ({phase['why']})",
+                             {name: n * steps for name, n in phase["per_step"].items()})
     if profile_path:
         root, ext = os.path.splitext(profile_path)
         profile_step(step, state, batch, f"{root}.{backbone}{ext}")
@@ -787,19 +862,212 @@ def run_train(dev, backbone, steps=5, warmup=2, profile_path=None):
     with plain_versions():
         _, m_p = step(s_plain, batch, 1)
     loss_k, loss_p = m_k["loss/total_loss"].item(), m_p["loss/total_loss"].item()
-    num = den = 0.0
-    pk = dict(s_kernel.model.named_parameters())
-    for name, p in s_plain.model.named_parameters():
-        dk, dp = pk[name] - before[name], p - before[name]
-        num += float(((dk - dp) ** 2).sum().detach())
-        den += float((dp ** 2).sum().detach())
-    upd_err = math.sqrt(num / max(den, 1e-30))
+    upd_err = update_gap(s_plain, s_kernel, before)
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     log(f"  loss kernel {loss_k:.6f} plain {loss_p:.6f} (rel {loss_rel:.3e}, tol 1e-2); "
         f"|update_kernel - update_plain| / |update_plain| = {upd_err:.3e} (tol 5e-2)")
     if loss_rel > 1e-2 or upd_err > 5e-2:
         fail("the kernel step and the plain-version step disagree")
-    return {"ms_per_step": ms_step, "launches": launches}
+    # the eager step's own spread: the same step once more, through the kernels
+    del s_plain
+    s_again = copy.deepcopy(state)
+    step(s_again, batch, 1)
+    log(f"  the same step again through the kernels: |update - update_first| / "
+        f"|update_first| = {update_gap(s_kernel, s_again, before):.3e} (information: "
+        f"cuDNN's default algorithms may sum in no fixed order)")
+    return {"ms_per_step": ms_step, "launches": launches, "peak_gib": peak}
+
+
+def update_gap(ref_state, state, init):
+    """|update - update_ref| / |update_ref| over the query encoder's parameters."""
+    num = den = 0.0
+    ps = dict(state.model.named_parameters())
+    for name, p in ref_state.model.named_parameters():
+        d, d_ref = ps[name].detach() - init[name], p.detach() - init[name]
+        num += float(((d - d_ref) ** 2).sum())
+        den += float((d_ref ** 2).sum())
+    return math.sqrt(num / max(den, 1e-30))
+
+
+def captured_calls(dev, step, state, steps, expected_per_step):
+    """``steps`` calls of a captured step on batches 0, 1, ... with seeds 0,
+    1, ..., each call's launches checked: the kernels' per step at the
+    warm-up calls and at the capture, none at a replay. Returns the losses
+    and the launches at the capture."""
+    from vince_tpu_torch.solvers.vince_step import WARMUP_STEPS
+
+    if steps <= WARMUP_STEPS:
+        fail("the captured step would not capture")
+    losses = []
+    for i in range(steps):
+        reset_counts()
+        _, metrics = step(state, make_batch(dev, seed=i), i)
+        torch.cuda.synchronize()
+        what = ("eager warm-up" if i < WARMUP_STEPS else "capture, then replay"
+                if i == WARMUP_STEPS else "replay")
+        launches = expect_counts(f"call {i} ({what})",
+                                 expected_per_step if i <= WARMUP_STEPS else {})
+        if i == WARMUP_STEPS:
+            capture_launches = launches
+        losses.append(metrics["loss/total_loss"].item())
+        if not math.isfinite(losses[-1]):
+            fail("non-finite loss in the captured step")
+    return losses, capture_launches
+
+
+def run_captured(dev, backbone, kind="sgd", steps=5, timed=5, profile_path=None):
+    """The captured step against the eager step from two states made from
+    seed 0, over ``steps`` batches (the warm-up calls, the capture, replays),
+    with cuDNN held to its deterministic algorithms on both sides so that
+    only the capture can part them; then, under the defaults, a step captured
+    anew on a new state and ``timed`` replays. Returns the state of the timed
+    graph (else of the compared one), its launches at the capture, and the
+    times."""
+    from vince_tpu_torch.solvers.vince_step import (
+        WARMUP_STEPS, build_vince_optimizer, init_vince_state, make_train_step,
+        make_train_step_fn)
+
+    phase = TRAIN_PHASES[backbone]
+    cfg = train_config(backbone)
+    opt = build_vince_optimizer(0.03, kind)
+    log(f"captured train step: {backbone}, {kind.upper()} lr 0.03, the same shapes; "
+        f"{WARMUP_STEPS} eager warm-up calls, then the capture; against the eager step, "
+        f"cuDNN deterministic on both sides")
+    torch.backends.cudnn.deterministic = True
+    s_eager = init_vince_state(0, cfg, opt, device=dev)
+    s_graph = init_vince_state(0, cfg, opt, device=dev)
+    init = {k: v.detach().clone() for k, v in s_eager.model.named_parameters()}
+    losses_g, capture_launches = captured_calls(dev, make_train_step(cfg, opt), s_graph, steps,
+                                                phase["per_step"])
+    eager = make_train_step_fn(cfg, opt)
+    loss_gaps = []
+    for i, loss_g in enumerate(losses_g):
+        _, m_e = eager(s_eager, make_batch(dev, seed=i), i)
+        loss_e = m_e["loss/total_loss"].item()
+        loss_gaps.append(abs(loss_g - loss_e) / abs(loss_e))
+        log(f"    step {i}: loss eager {loss_e:.8f} captured {loss_g:.8f} "
+            f"(rel gap {loss_gaps[-1]:.3e})")
+    torch.backends.cudnn.deterministic = False
+    upd = update_gap(s_eager, s_graph, init)
+    log(f"  after {steps} steps: max loss gap {max(loss_gaps):.3e} (tol 1e-2), "
+        f"|update_captured - update_eager| / |update_eager| = {upd:.3e} (tol 5e-2)")
+    for name in ("tail", "total"):
+        if not torch.equal(getattr(s_eager.queue, name), getattr(s_graph.queue, name)):
+            fail(f"queue {name}: eager and captured differ")
+    if s_graph.queue.inserted != s_eager.queue.inserted or s_graph.step != s_eager.step:
+        fail("the captured step's host counts differ from the eager step's")
+    if max(loss_gaps) > 1e-2 or upd > 5e-2:
+        fail("the captured step and the eager step disagree")
+    result = {"capture_launches": capture_launches, "loss_gap": max(loss_gaps),
+              "update_gap": upd}
+    if not timed:
+        return s_graph, result
+    del s_eager, s_graph, eager, init
+
+    log(f"captured train step, timed: {backbone}, cuDNN's defaults (as the eager timing), "
+        f"a new state and a new capture")
+    state = init_vince_state(0, cfg, opt, device=dev)
+    captured = make_train_step(cfg, opt)
+    captured_calls(dev, captured, state, WARMUP_STEPS + 1, phase["per_step"])
+    batch = make_batch(dev)
+    reset_counts()
+    ms_step, step_ms, _, peak = time_steps(captured, state, batch, timed)
+    log_times("captured", ms_step, step_ms, peak)
+    expect_counts(f"{timed} timed replays", {})
+    result.update(ms_per_step=ms_step, peak_gib=peak)
+    if profile_path:
+        root, ext = os.path.splitext(profile_path)
+        profile_step(captured, state, batch, f"{root}.{backbone}.captured{ext}")
+    return state, result
+
+
+# launches of each step beside training, per call: eval (key and query
+# train-mode forward, the loss), prefill (key train-mode forward), embed with
+# either encoder and panel (eval-mode forward: ResNet50's eval-mode BN takes
+# the unfused chain, so no K2)
+EVAL_COUNTS = {
+    "ResNet50": {"eval": {"queue_logsumexp": 1, "affine_relu_dot_moments": 26},
+                 "prefill": {"affine_relu_dot_moments": 13}, "embed": {},
+                 "embed (key encoder)": {}, "panel": {}},
+    "EfficientNetB0": {"eval": {"queue_logsumexp": 1, "depthwise_conv": 24},
+                       "prefill": {"depthwise_conv": 12}, "embed": {"depthwise_conv": 12},
+                       "embed (key encoder)": {"depthwise_conv": 12},
+                       "panel": {"depthwise_conv": 12}},
+}
+
+
+def state_snapshot(state):
+    """Every tensor and count of a state, copied."""
+    opt = state.optimizer
+    return ([v.clone() for v in state.model.state_dict().values()]
+            + [v.clone() for v in state.key_model.state_dict().values()]
+            + [opt.state[p]["momentum_buffer"].clone() for p in opt.params]
+            + [t.clone() for t in (opt.lr, state.queue.vectors, state.queue.sources,
+                                   state.queue.tail, state.queue.total)],
+            (state.step, state.queue.inserted))
+
+
+def unit_rows(what, emb):
+    norms = emb.float().norm(dim=-1)
+    if emb.shape != (BATCH_SIZE, 128) or not bool(torch.isfinite(emb).all()) or \
+            (norms - 1).abs().max().item() > 1e-2:
+        fail(f"{what}: embeddings of shape {tuple(emb.shape)} with norms "
+             f"{norms.min().item():.4f}-{norms.max().item():.4f}")
+
+
+def run_eval_steps(dev, backbone, state):
+    """The eval, prefill, embed and panel steps on ``state`` (trained by the
+    captured phase), once each: launches, finite outputs with unit-norm
+    embeddings, and the state bit-identical before and after."""
+    from vince_tpu_torch.ops.kernels import plain_versions
+    from vince_tpu_torch.solvers.vince_step import (
+        make_embed_fn, make_eval_step, make_key_prefill_fn, make_panel_fn)
+
+    cfg = train_config(backbone)
+    batch = make_batch(dev, seed=10)
+    images = batch[0]["data"]
+    log(f"eval, prefill, embed and panel: {backbone}, b=128, 224x224 (val path: 256x256 "
+        f"canvases, a centre crop)")
+    eval_step, prefill = make_eval_step(cfg), make_key_prefill_fn(cfg, 0)
+    calls = {"eval": lambda: eval_step(state, batch, 0),
+             "prefill": lambda: prefill(state, batch[0]["queue_data"], 0),
+             "embed": lambda: make_embed_fn(cfg)(state, images),
+             "embed (key encoder)": lambda: make_embed_fn(cfg, True)(state, images),
+             "panel": lambda: make_panel_fn(cfg)(state, images)}
+    launches = {}
+    for name, call in calls.items():
+        tensors, counts = state_snapshot(state)
+        reset_counts()
+        out = call()
+        torch.cuda.synchronize()
+        launches[name] = expect_counts(name, EVAL_COUNTS[backbone][name])
+        after, after_counts = state_snapshot(state)
+        if counts != after_counts or not all(torch.equal(x, y) for x, y in zip(tensors, after)):
+            fail(f"{name} changed the state")
+        del tensors, after
+        if name == "eval":
+            m_k = out
+            if not all(math.isfinite(v.item()) for v in out.values()):
+                fail(f"eval: non-finite metrics {out}")
+            log("    " + ", ".join(f"{k} {v.item():.6f}" for k, v in out.items()))
+        elif name == "prefill":
+            unit_rows(name, out)
+        elif name.startswith("embed"):
+            unit_rows(name, out[0])
+            if out[1].shape[0] != BATCH_SIZE or not bool(torch.isfinite(out[1]).all()):
+                fail(f"{name}: features of shape {tuple(out[1].shape)} or not finite")
+        else:
+            unit_rows(name, out["embeddings"])
+        log(f"    {name}: state bit-identical before and after")
+    with plain_versions():
+        m_p = eval_step(state, batch, 0)
+    loss_k, loss_p = m_k["loss/nce_loss"].item(), m_p["loss/nce_loss"].item()
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"  eval loss through the kernels {loss_k:.6f}, through the plain versions "
+        f"{loss_p:.6f} (rel {rel:.3e}, tol 1e-2)")
+    if rel > 1e-2:
+        fail("the eval step through the kernels and through the plain versions disagree")
+    return launches
 
 
 def run_conv_bn_op(dev):
@@ -859,15 +1127,27 @@ def main():
     if not args.kernels_only:
         # each path is driven with the counts set to 0 just before its timed
         # steps and read just after; a kernel's launches are summed over the paths
-        trains = {b: run_train(dev, b, profile_path=args.profile) for b in TRAIN_PHASES}
-        op_launches = run_conv_bn_op(dev)
+        paths = {}  # launches of each path, by kernel
+        times = {}
+        for b in TRAIN_PHASES:
+            eager = run_train(dev, b, profile_path=args.profile)
+            paths[f"{b} eager, 5 steps"] = eager["launches"]
+            state, captured = run_captured(dev, b, profile_path=args.profile)
+            paths[f"{b} captured (at the capture)"] = captured["capture_launches"]
+            for name, launches in run_eval_steps(dev, b, state).items():
+                paths[f"{b} {name}"] = launches
+            del state
+            times[b] = (eager, captured)
+        _, lars = run_captured(dev, "ResNet50", kind="lars", timed=0)
+        paths["ResNet50 captured LARS (at the capture)"] = lars["capture_launches"]
+        paths["stand-alone op"] = {"affine_conv3x3_stats": run_conv_bn_op(dev)}
         for k in kernels:
-            by_path = {b: t["launches"].get(k["name"], 0) for b, t in trains.items()}
-            if k["name"] == "affine_conv3x3_stats":
-                by_path["stand-alone op"] = op_launches
-            k["launches"] = sum(by_path.values())
-            k["launches_by_path"] = by_path
-        log("ms/step: " + ", ".join(f"{b} {t['ms_per_step']:.3f}" for b, t in trains.items()))
+            k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items() if k["name"] in n}
+            k["launches"] = sum(k["launches_by_path"].values())
+        for b, (eager, captured) in times.items():
+            log(f"ms/step {b}: eager {eager['ms_per_step']:.3f} (peak {eager['peak_gib']:.3f} "
+                f"GiB), captured {captured['ms_per_step']:.3f} (peak "
+                f"{captured['peak_gib']:.3f} GiB); card {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

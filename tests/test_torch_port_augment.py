@@ -124,3 +124,31 @@ def test_draws_are_valid_crops_and_permutations():
                                "StandardVideoTransform", 32), dtype=torch.bfloat16)
     assert out.shape == (B, 32, 32, 3) and out.dtype == torch.bfloat16
     assert torch.isfinite(out.float()).all()
+
+
+# the val path: downsampling (the antialiased kernel widens), upsampling, and
+# the published shape, where the resize is the identity and only the crop acts
+VAL_CASES = [(80, 32), (24, 32), (256, 224)]
+
+
+@pytest.mark.parametrize("canvas,size", VAL_CASES)
+def test_val_resize_center_crop_matches_jax(canvas, size):
+    img = (_images(seed=8, b=2, size=canvas) / 255.0).astype(np.float32)
+    ref = ja.val_resize_center_crop(jnp.asarray(img), (size, size))
+    got = ta.val_resize_center_crop(_t(img), (size, size))
+    assert got.shape == ref.shape == (2, size, size, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
+    if canvas == 256:  # 256 = 224 / 0.875: a crop, exactly
+        np.testing.assert_array_equal(got.numpy(), img[:, 16:240, 16:240])
+
+
+@pytest.mark.parametrize("canvas,size", VAL_CASES)
+def test_val_augment_batch_matches_jax(canvas, size):
+    """``augment_batch(train=False)`` on uint8 canvases: the crop, then
+    ``_finalize``; it draws nothing."""
+    images = _images(seed=9, b=2, size=canvas)
+    ref = ja.augment_batch(None, jnp.asarray(images), jax_make_config("StandardVideoTransform", size),
+                           train=False)
+    got = ta.augment_batch(None, _t(images), make_config("StandardVideoTransform", size),
+                           train=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-5)

@@ -28,8 +28,12 @@ def test_enqueue_wraparound_matches_jax(batch):
         ts = torch_queue.enqueue(ts, torch.from_numpy(items), i)
         np.testing.assert_array_equal(ts.vectors.numpy(), np.asarray(js.vectors))
         np.testing.assert_array_equal(ts.sources.numpy(), np.asarray(js.sources))
-        assert ts.tail == int(js.tail) and ts.total == int(js.total)
-    assert ts.total == k and ts.full
+        # the pointers are int32 0-dim tensors, as in JAX; the host count mirrors total
+        for got, ref in ((ts.tail, js.tail), (ts.total, js.total)):
+            assert got.dtype == torch.int32 and got.shape == ()
+            np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+        assert ts.inserted == int(js.total)
+    assert int(ts.total) == k and ts.full
 
 
 def test_init_queue_rows_are_unit_vectors():

@@ -108,7 +108,7 @@ def run_steps(wrappers, jax_options=None, **backbone_options):
                             flax_to_state_dict({**sj.params, **sj.key_params},
                                                sj.key_batch_stats)),
                 queue=((state_t.queue.vectors.numpy().copy(), state_t.queue.sources.numpy().copy(),
-                        state_t.queue.tail, state_t.queue.total),
+                        int(state_t.queue.tail), int(state_t.queue.total)),
                        (np.asarray(sj.queue.vectors), np.asarray(sj.queue.sources),
                         int(sj.queue.tail), int(sj.queue.total))),
                 momentum=({k: state_t.optimizer.state[p]["momentum_buffer"].numpy().copy()

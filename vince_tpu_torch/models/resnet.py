@@ -8,7 +8,10 @@ Parameter names follow torchvision (``layer1.0.conv1.weight``, conv weights
 
 BatchNorm follows flax, not ``torch.nn.BatchNorm2d``: statistics in float32,
 the uncentered variance max(E[x²]−μ², 0), and running averages updated as
-0.9·old + 0.1·batch with the *biased* batch variance.
+0.9·old + 0.1·batch with the *biased* batch variance. Inside
+``unrecorded_batch_stats(model)`` a train-mode forward normalises by the
+batch's statistics and leaves the running averages as they were, as the JAX
+eval and prefill steps do when they drop the ``batch_stats`` they mutated.
 
 ``bn_fold != "none"`` folds the batch statistics of the expanding 1×1 convs
 into their weights from the input moments (``folded_dot_bn``); with
@@ -17,6 +20,7 @@ K2 (``fused_bn_relu_folded_dot``) at the sites ``_kernel_site_supported``
 admits, the same sites as in JAX.
 """
 
+import contextlib
 import functools
 import math
 from typing import Callable, Optional, Sequence
@@ -98,6 +102,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.momentum, self.eps, self.zero_scale = momentum, eps, zero_scale
+        self.record_stats = True  # train mode: update the running averages
 
     def reset_parameters(self, generator=None):
         nn.init.constant_(self.weight, 0.0 if self.zero_scale else 1.0)
@@ -107,13 +112,15 @@ class BatchNorm(nn.Module):
 
     def batch_stats(self, mean: torch.Tensor, var: torch.Tensor):
         """Record a train-mode batch's (mean, biased var) in the running
-        averages and return them; in eval mode return the running averages."""
+        averages, unless ``record_stats`` is off, and return them; in eval
+        mode return the running averages."""
         if not self.training:
             return self.running_mean, self.running_var
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
-            self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+        if self.record_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
         return mean, var
 
     def forward(self, x):
@@ -127,6 +134,22 @@ class BatchNorm(nn.Module):
             mean, var = self.batch_stats(None, None)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return ((x.float() - mean) * mul + self.bias).to(x.dtype)
+
+
+@contextlib.contextmanager
+def unrecorded_batch_stats(*modules: nn.Module):
+    """Train-mode BatchNorm in ``modules`` that records nothing in its running
+    averages (every path reads them through ``BatchNorm.batch_stats``: the
+    module, the folded dots and K2's chain)."""
+    bns = [m for mod in modules for m in mod.modules() if isinstance(m, BatchNorm)]
+    before = [bn.record_stats for bn in bns]
+    for bn in bns:
+        bn.record_stats = False
+    try:
+        yield
+    finally:
+        for bn, rec in zip(bns, before):
+            bn.record_stats = rec
 
 
 def _fold_affine(bn: BatchNorm, mu, var):

@@ -1,5 +1,5 @@
-"""Batched image augmentation on the device, train path (counterpart of
-``vince_tpu/ops/augment.py``).
+"""Batched image augmentation on the device (counterpart of
+``vince_tpu/ops/augment.py``): the train path and the val path.
 
 The random numbers are drawn in one function (``draw_augment_params``, from
 a ``torch.Generator``) and applied by a deterministic one
@@ -9,9 +9,15 @@ blur) are per-sample separable linear operators applied as two batched
 matmuls, ``out = W_y · img · W_xᵀ``: the JAX package records a gather
 formulation as a 500× regression. Colour jitter follows torchvision's
 float-tensor semantics with a per-sample random op order and one HSV pass.
+The val path resizes by ``jax.image.resize``'s linear kernel and crops the
+centre, also as two matmuls.
+
+The body of both paths reads no host data, so a CUDA graph can capture it:
+its constant vectors are made once per device and type (``_constant``).
 """
 
 import dataclasses
+import functools
 import math
 from typing import Tuple
 
@@ -70,8 +76,15 @@ class AugmentDraws:
 # colour helpers
 
 
+@functools.lru_cache(maxsize=None)
+def _constant(values: Tuple[float, ...], dtype: torch.dtype, device: torch.device):
+    """``values`` as a tensor on ``device``, made on the first call (a copy
+    from the host, which a stream capture does not allow) and kept."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def _rgb_to_grayscale(img):
-    w = torch.tensor(_GRAY_WEIGHTS, dtype=img.dtype, device=img.device)
+    w = _constant(_GRAY_WEIGHTS, img.dtype, img.device)
     return (img * w).sum(dim=-1, keepdim=True)
 
 
@@ -187,6 +200,26 @@ def _gaussian_matrix(sigma, apply_mask, dim: int, kernel: int):
     return torch.where(apply_mask[:, None, None], g, eye)
 
 
+def _resize_matrix(in_dim: int, out_dim: int, device) -> torch.Tensor:
+    """[out_dim, in_dim] operator of ``jax.image.resize(method="linear")``
+    along one axis (``jax.image.scale_and_translate``'s weights): the triangle
+    kernel, widened by the scale when it downsamples (antialiasing), each
+    output's weights normalised to sum to one, zero for a sample outside the
+    input; the identity where the sizes are equal, which JAX skips."""
+    if in_dim == out_dim:
+        return torch.eye(in_dim, device=device)
+    inv_scale = in_dim / out_dim
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(out_dim, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    src = torch.arange(in_dim, dtype=torch.float32, device=device)
+    w = torch.clamp(1.0 - torch.abs(sample[:, None] - src[None, :]) / kernel_scale, min=0.0)
+    total = w.sum(dim=-1, keepdim=True)
+    w = torch.where(torch.abs(total) > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= in_dim - 0.5)
+    return torch.where(inside[:, None], w, 0.0)
+
+
 def _apply_separable(img, w_y, w_x):
     """img [B,H,W,C] · per-sample operators → [B,out_h,out_w,C], two batched matmuls."""
     out = torch.einsum("bij,bjwc->biwc", w_y, img)
@@ -246,8 +279,8 @@ def color_jitter_apply(img, perm, fb, fc, fs, fh, cfg: AugmentConfig):
 
 def _finalize(out, cfg: AugmentConfig):
     if cfg.normalize:
-        mean = torch.tensor(IMAGENET_MEAN, dtype=out.dtype, device=out.device)
-        std = torch.tensor(IMAGENET_STD, dtype=out.dtype, device=out.device)
+        mean = _constant(IMAGENET_MEAN, out.dtype, out.device)
+        std = _constant(IMAGENET_STD, out.dtype, out.device)
         out = (out - mean) / std
     return out
 
@@ -313,9 +346,27 @@ def apply_augment(images: torch.Tensor, draws: AugmentDraws, cfg: AugmentConfig,
     return _finalize(out, cfg).to(dtype)
 
 
+def val_resize_center_crop(images: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Resize [B,H,W,C] to size/0.875 and crop the centre (JAX
+    ``val_resize_center_crop``): the crop keeps rows of the resize operators,
+    which are then applied as two batched matmuls."""
+    b, in_h, in_w, _ = images.shape
+    rh, rw = int(size[0] / 0.875), int(size[1] / 0.875)
+    i, j = (rh - size[0]) // 2, (rw - size[1]) // 2
+    w_y = _resize_matrix(in_h, rh, images.device)[i:i + size[0]]
+    w_x = _resize_matrix(in_w, rw, images.device)[j:j + size[1]]
+    return _apply_separable(images, w_y.expand(b, -1, -1), w_x.expand(b, -1, -1))
+
+
 def augment_batch(generator: torch.Generator, images: torch.Tensor, cfg: AugmentConfig,
-                  dtype=torch.float32) -> torch.Tensor:
-    """Train-mode augmentation with per-sample randomness from ``generator``."""
+                  dtype=torch.float32, train: bool = True) -> torch.Tensor:
+    """Train-mode augmentation with per-sample randomness from ``generator``;
+    with ``train=False`` the val path, which draws nothing."""
+    if not train:
+        imgs = images.float()
+        if images.dtype == torch.uint8:
+            imgs = imgs / 255.0
+        return _finalize(val_resize_center_crop(imgs, cfg.size), cfg).to(dtype)
     b, in_h, in_w, _ = images.shape
     return apply_augment(images, draw_augment_params(generator, b, in_h, in_w, cfg),
                          cfg, dtype)

@@ -4,8 +4,10 @@
 Unlike the JAX state, which is immutable, ``enqueue`` writes the new rows
 into the bank in place and returns the same state object with the pointers
 advanced: the bank is 32 MB at K=65536, D=128, and a copy per step would be
-pure traffic. ``tail`` and ``total`` are host integers, so stepping the queue
-never waits on the device.
+pure traffic. ``tail`` and ``total`` are int32 0-dim tensors on the bank's
+device, as in JAX, so that a CUDA graph of the step replays the insert at the
+pointer's current value; ``inserted`` mirrors ``total`` on the host, so that
+``full`` never waits on the device.
 """
 
 import dataclasses
@@ -20,8 +22,16 @@ class QueueState:
 
     vectors: torch.Tensor  # [K, D] float32, L2-normalised rows
     sources: torch.Tensor  # [K] int32 data-source tags (-1 = random init)
-    tail: int = 0  # next insert position
-    total: int = 0  # rows inserted so far, saturated at K
+    tail: Optional[torch.Tensor] = None  # int32 0-dim: next insert position
+    total: Optional[torch.Tensor] = None  # int32 0-dim: rows inserted, saturated at K
+    inserted: int = 0  # ``total`` on the host
+
+    def __post_init__(self):
+        dev = self.vectors.device
+        if self.tail is None:
+            self.tail = torch.zeros((), dtype=torch.int32, device=dev)
+        if self.total is None:
+            self.total = torch.zeros((), dtype=torch.int32, device=dev)
 
     @property
     def maxsize(self) -> int:
@@ -29,7 +39,12 @@ class QueueState:
 
     @property
     def full(self) -> bool:
-        return self.total >= self.maxsize
+        return self.inserted >= self.maxsize
+
+    def count_inserted(self, rows: int) -> None:
+        """Advance the host mirror of ``total`` by ``rows`` (the device pointers
+        move in ``enqueue``; a replayed graph moves them without Python)."""
+        self.inserted = min(self.inserted + rows, self.maxsize)
 
 
 def init_queue(generator: torch.Generator, maxsize: int, feat_size: int,
@@ -48,13 +63,15 @@ def init_queue(generator: torch.Generator, maxsize: int, feat_size: int,
 @torch.no_grad()
 def enqueue(state: QueueState, items: torch.Tensor,
             source: Optional[int] = None) -> QueueState:
-    """Insert ``items`` [B, D] at the tail with modular wraparound, in place."""
+    """Insert ``items`` [B, D] at the tail with modular wraparound, in place,
+    with no read of the pointers on the host."""
     k = state.maxsize
     b = items.shape[0]
     assert b <= k, f"enqueue batch {b} larger than queue {k}"
     idx = (state.tail + torch.arange(b, device=state.vectors.device)) % k
     state.vectors.index_copy_(0, idx, items.to(state.vectors.dtype))
     state.sources.index_fill_(0, idx, 0 if source is None else int(source))
-    state.tail = (state.tail + b) % k
-    state.total = min(state.total + b, k)
+    state.tail.add_(b).remainder_(k)
+    state.total.add_(b).clamp_(max=k)
+    state.count_inserted(b)
     return state

@@ -1,29 +1,38 @@
 """The VINCE pretraining step on one GPU (counterpart of
-``vince_tpu/solvers/vince_step.py::make_train_step_fn``).
+``vince_tpu/solvers/vince_step.py``), and the steps beside it: eval, key
+prefill, embedding and panels.
 
     uint8 frames → augmentation on the device → key forward (no grad,
     shuffled BN) → query forward → multi-pair InfoNCE against the batch keys
-    and the queue → backward → SGD → EMA of the key encoder → enqueue
+    and the queue → backward → SGD or LARS → EMA of the key encoder → enqueue
 
 in the JAX order: the loss reads the queue as it was before this step's
-insert, the EMA follows the SGD step, and the enqueue comes last. The key
-encoder's BatchNorm running statistics move with its own train-mode forward,
-not with the EMA.
+insert, the EMA follows the optimizer step, and the enqueue comes last. The
+key encoder's BatchNorm running statistics move with its own train-mode
+forward, not with the EMA.
 
 The JAX step is a pure function of an immutable state. Here the state holds
-``nn.Module``s and a ``torch.optim.SGD``, and a step updates them in place and
-returns the same object.
+``nn.Module``s, a ``VinceOptimizer`` and the queue, and a step updates them in
+place and returns the same object. A step is split in two: the draws (every
+random number of the step: the augmentation's and the shuffled-BN
+permutation, drawn eagerly from generators seeded by the run's seed and the
+step) and the body (everything from the augmentation's apply to the enqueue),
+which reads only tensors. ``make_train_step_fn`` runs both eagerly;
+``make_train_step``, the counterpart of ``jax.jit(..., donate_argnums=(0,))``,
+captures the body in a CUDA graph and replays it.
 """
 
 import copy
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
 from vince_tpu_torch.device import full_f32_products, resolve_device
+from vince_tpu_torch.models.resnet import unrecorded_batch_stats
 from vince_tpu_torch.models.vince_model import VinceEncoder, split_vince_params
-from vince_tpu_torch.ops.augment import apply_augment, draw_augment_params
+from vince_tpu_torch.ops.augment import (
+    AugmentConfig, AugmentDraws, _finalize, apply_augment, augment_batch, draw_augment_params)
 from vince_tpu_torch.ops.ema import ema_update
 from vince_tpu_torch.ops.queue import QueueState, enqueue, init_queue
 from vince_tpu_torch.ops.sharded_infonce import sharded_multi_pair_infonce
@@ -45,7 +54,9 @@ class SourceSpec:
 
 @dataclasses.dataclass(frozen=True)
 class VinceConfig:
-    """Static configuration of the pretraining step."""
+    """Static configuration of the pretraining step. The heads and the step
+    branches that use them (attention pool, jigsaw, self-batch, ImageNet CE)
+    are not ported, so the config has no field that asks for them."""
 
     sources: Tuple[SourceSpec, ...]
     backbone: str = "ResNet18"
@@ -69,43 +80,108 @@ class VinceConfig:
         return sum(s.batch_size for s in self.sources)
 
 
-@dataclasses.dataclass
-class VinceState:
-    step: int
-    model: VinceEncoder  # query encoder: params and BN running statistics
-    key_model: VinceEncoder  # momentum encoder
-    optimizer: torch.optim.SGD
-    queue: QueueState
-
-    @property
-    def device(self) -> torch.device:
-        return self.queue.vectors.device
-
-
 SGD_MOMENTUM = 0.9
 WEIGHT_DECAY = 1e-4
+LARS_TRUST_COEFFICIENT = 1e-3  # optax.lars's default (eps 0)
+
+
+class VinceOptimizer:
+    """SGD or LARS in a form that a CUDA graph can capture: the learning rate
+    is a 0-dim tensor on the parameters' device (``set_lr`` writes it and does
+    not sync), the momentum traces exist from the start, and ``step`` reads
+    nothing on the host.
+
+    - SGD equals ``optax.chain(add_decayed_weights(1e-4), sgd(lr, momentum=0.9))``:
+      t ← (g + λp) + 0.9·t, then p ← p − lr·t.
+    - LARS equals ``optax.lars(lr, weight_decay=1e-4, momentum=0.9)`` with the
+      decay and the trust ratio masked to parameters of more than one
+      dimension (biases and BN scales and biases take neither):
+      u = g + λp, then u ← r·u with r = 0.001·‖p‖/‖u‖ (1 where either norm is
+      0), then t ← 0.9·t − lr·u and p ← p + t.
+
+    ``state[p]["momentum_buffer"]`` is the trace t, in optax's convention for
+    each kind.
+    """
+
+    def __init__(self, params, kind: str = "sgd"):
+        if kind not in ("sgd", "lars"):
+            raise ValueError(f"unknown optimizer kind {kind!r}")
+        self.params = list(params)
+        self.kind = kind
+        self.lr = torch.zeros((), dtype=torch.float32, device=self.params[0].device)
+        self.state = {p: {"momentum_buffer": torch.zeros_like(p)} for p in self.params}
+        # LARS: which parameters take the decay and the trust ratio
+        self._adapted = [i for i, p in enumerate(self.params) if p.dim() > 1]
+
+    def set_lr(self, lr: float) -> None:
+        self.lr.fill_(lr)
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        params = self.params
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        traces = [self.state[p]["momentum_buffer"] for p in params]
+        if self.kind == "sgd":
+            updates = torch._foreach_add(grads, params, alpha=WEIGHT_DECAY)
+            torch._foreach_mul_(traces, SGD_MOMENTUM)
+            torch._foreach_add_(traces, updates)
+            torch._foreach_sub_(params, torch._foreach_mul(traces, self.lr))
+            return
+        adapted = [params[i] for i in self._adapted]
+        decayed = torch._foreach_add([grads[i] for i in self._adapted], adapted,
+                                     alpha=WEIGHT_DECAY)
+        p_norm = torch.stack(torch._foreach_norm(adapted))
+        u_norm = torch.stack(torch._foreach_norm(decayed))
+        ratio = torch.where((p_norm == 0) | (u_norm == 0), 1.0,
+                            LARS_TRUST_COEFFICIENT * p_norm / u_norm)
+        torch._foreach_mul_(decayed, list(ratio.unbind()))
+        updates = list(grads)
+        for i, u in zip(self._adapted, decayed):
+            updates[i] = u
+        torch._foreach_mul_(traces, SGD_MOMENTUM)
+        torch._foreach_sub_(traces, torch._foreach_mul(updates, self.lr))
+        torch._foreach_add_(params, traces)
 
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerSpec:
-    """SGD with momentum 0.9 and weight decay 1e-4 on a learning-rate
-    schedule: ``torch.optim.SGD(momentum, weight_decay, dampening=0)`` equals
-    ``optax.chain(add_decayed_weights(wd), sgd(schedule, momentum))``."""
+    """The optimizer's kind and learning-rate schedule; ``make`` builds it
+    over the parameters, and each step writes ``lr(state.step)`` into it, as
+    the optax schedule is evaluated at its update count."""
 
     lr_schedule: Union[float, Callable[[int], float]]
+    kind: str = "sgd"
 
     def lr(self, step: int) -> float:
         s = self.lr_schedule
         return float(s(step)) if callable(s) else float(s)
 
-    def make(self, params) -> torch.optim.SGD:
-        return torch.optim.SGD(params, lr=self.lr(0), momentum=SGD_MOMENTUM,
-                               dampening=0.0, weight_decay=WEIGHT_DECAY)
+    def make(self, params) -> VinceOptimizer:
+        return VinceOptimizer(params, self.kind)
 
 
-def build_vince_optimizer(lr_schedule) -> OptimizerSpec:
-    """The pretraining optimizer: SGD (LARS is not ported yet)."""
-    return OptimizerSpec(lr_schedule)
+def build_vince_optimizer(lr_schedule, kind: str = "sgd") -> OptimizerSpec:
+    """The pretraining optimizer: ``kind`` "sgd" or "lars"."""
+    if kind not in ("sgd", "lars"):
+        raise ValueError(f"unknown optimizer kind {kind!r}")
+    return OptimizerSpec(lr_schedule, kind)
+
+
+@dataclasses.dataclass
+class VinceState:
+    step: int
+    model: VinceEncoder  # query encoder: params and BN running statistics
+    key_model: VinceEncoder  # momentum encoder
+    optimizer: VinceOptimizer
+    queue: QueueState
+
+    @property
+    def device(self) -> torch.device:
+        return self.queue.vectors.device
 
 
 def build_encoder(cfg: VinceConfig) -> VinceEncoder:
@@ -130,10 +206,11 @@ def init_vince_state(seed: int, cfg: VinceConfig, optimizer: OptimizerSpec,
                       optimizer=optimizer.make(model.parameters()), queue=queue)
 
 
-def _generator(device, seed: int, step: int, stream: int) -> torch.Generator:
-    """A generator for one use (``stream``) in one step, from the run's seed."""
+def _generator(device, seed: int, index: int, stream: int) -> torch.Generator:
+    """A generator for one use (``stream``) at one index (the step, or the
+    source of a prefill), from the run's seed."""
     return torch.Generator(device=device).manual_seed(
-        (seed * 1_000_003 + step * 16 + stream) % 2 ** 63)
+        (seed * 1_000_003 + index * 16 + stream) % 2 ** 63)
 
 
 def _source_masks(cfg: VinceConfig, src: SourceSpec, device):
@@ -156,82 +233,318 @@ def _source_offsets(cfg: VinceConfig):
     return offs
 
 
-def _augment_sources(cfg: VinceConfig, batch, generator: torch.Generator):
-    """Augment every source's query and key frames on the device."""
+def _transform(cfg: VinceConfig, src: SourceSpec) -> AugmentConfig:
+    return make_config(src.transform, cfg.image_size, jitter_order=cfg.jitter_order)
+
+
+@dataclasses.dataclass
+class StepDraws:
+    """The random numbers of one step: per source the query's and the key's
+    augmentation draws (None for the val path), and the shuffled-BN
+    permutation (None without shuffled BN)."""
+
+    augment: List[Tuple[Optional[AugmentDraws], Optional[AugmentDraws]]]
+    perm: Optional[torch.Tensor]
+
+
+def _draw_step(cfg: VinceConfig, batch, seed: int, step: int, mode: str = "train") -> StepDraws:
+    """Draw a step's random numbers on the batch's device. ``mode="val"``
+    mirrors the reference's val loaders: queries take the val path, which
+    draws nothing; keys of single-frame sources stay train-augmented, keys of
+    video sources take the val path too."""
+    dev = batch[0]["data"].device
+    gen = _generator(dev, seed, step, 0)
+    augment = []
+    for src, src_batch in zip(cfg.sources, batch):
+        b, h, w, _ = src_batch["data"].shape
+        tcfg = _transform(cfg, src)
+        if mode == "train":
+            q = draw_augment_params(gen, b, h, w, tcfg)
+            k = q if src.shared_transform else draw_augment_params(gen, b, h, w, tcfg)
+        else:
+            q = None
+            k = draw_augment_params(gen, b, h, w, tcfg) if src.num_frames == 1 else None
+        augment.append((q, k))
+    perm = (make_shuffle_perm(_generator(dev, seed, step, 1), cfg.total_batch)
+            if cfg.shuffle_bn else None)
+    return StepDraws(augment, perm)
+
+
+def _augment(images, draws: Optional[AugmentDraws], tcfg: AugmentConfig, dtype):
+    if draws is None:
+        return augment_batch(None, images, tcfg, dtype, train=False)
+    return apply_augment(images, draws, tcfg, dtype)
+
+
+def _augment_sources(cfg: VinceConfig, batch, draws):
+    """Augment every source's query and key frames on the device with the
+    step's draws."""
     q_imgs, k_imgs = [], []
-    for si, src in enumerate(cfg.sources):
-        tcfg = make_config(src.transform, cfg.image_size, jitter_order=cfg.jitter_order)
-        data, queue_data = batch[si]["data"], batch[si]["queue_data"]
-        b, h, w, _ = data.shape
-        q_draws = draw_augment_params(generator, b, h, w, tcfg)
-        k_draws = q_draws if src.shared_transform else draw_augment_params(
-            generator, b, h, w, tcfg)
-        q_imgs.append(apply_augment(data, q_draws, tcfg, cfg.compute_dtype))
-        k_imgs.append(apply_augment(queue_data, k_draws, tcfg, cfg.compute_dtype))
+    for src, src_batch, (q_draws, k_draws) in zip(cfg.sources, batch, draws):
+        tcfg = _transform(cfg, src)
+        q_imgs.append(_augment(src_batch["data"], q_draws, tcfg, cfg.compute_dtype))
+        k_imgs.append(_augment(src_batch["queue_data"], k_draws, tcfg, cfg.compute_dtype))
     return torch.cat(q_imgs, 0), torch.cat(k_imgs, 0)
 
 
+@torch.no_grad()
+def _key_embeddings(cfg: VinceConfig, state: VinceState, k_all, perm):
+    """The key encoder's f32 embeddings of each source, through shuffled BN
+    when ``perm`` is given."""
+    k_in = k_all if perm is None else shuffle(k_all, perm)
+    k_emb = state.key_model(k_in)["embeddings"].float()
+    if perm is not None:
+        k_emb = unshuffle(k_emb, perm)
+    return [k_emb[a:b] for a, b in _source_offsets(cfg)]
+
+
+METRIC_KEYS = ("nce_accuracy", "softmax_weight", "cosine_sim", "cosine_sim_neg_max")
+
+
+def _source_losses(cfg: VinceConfig, q_emb, k_sources, queue):
+    """Per-source InfoNCE against the batch keys and the queue: the mean of
+    the losses, and the mean of each metric over the sources."""
+    losses, metrics = [], {}
+    for si, ((a, b), src) in enumerate(zip(_source_offsets(cfg), cfg.sources)):
+        mask, neg_mask = _source_masks(cfg, src, q_emb.device)
+        res = sharded_multi_pair_infonce(
+            q_emb[a:b], k_sources[si], mask, cfg.temperature,
+            queue_shard=queue, batch_neg_mask=neg_mask,
+            use_fused_queue_kernel=cfg.use_fused_infonce)
+        losses.append(res["dist"])
+        for mk in METRIC_KEYS:
+            metrics.setdefault(mk, []).append(res[mk])
+    return torch.stack(losses).mean(), {k: torch.stack(v).mean() for k, v in metrics.items()}
+
+
+def _train_body(cfg: VinceConfig, state: VinceState, batch, draws: StepDraws):
+    """One step from the augmentation's apply to the enqueue; the learning
+    rate is already in ``state.optimizer``."""
+    q_all, k_all = _augment_sources(cfg, batch, draws.augment)
+    k_sources = _key_embeddings(cfg, state, k_all, draws.perm)
+    # the loss reads the queue before this step's enqueue
+    total, metrics = _source_losses(cfg, state.model(q_all)["embeddings"].float(), k_sources,
+                                    state.queue.vectors)
+    opt = state.optimizer
+    opt.zero_grad()
+    total.backward()
+    opt.step()
+
+    # EMA of the tracked parameters, after the optimizer step
+    tracked, _ = split_vince_params(dict(state.model.named_parameters()))
+    key_params = dict(state.key_model.named_parameters())
+    ema_update([key_params[k] for k in tracked], tracked.values(), cfg.momentum)
+
+    # enqueue the keys, last
+    for si, src in enumerate(cfg.sources):
+        enqueue(state.queue, k_sources[si], src.source_id)
+
+    out = {k: v.detach() for k, v in metrics.items()}
+    out["loss/nce_loss"] = out["loss/total_loss"] = total.detach()
+    return out
+
+
 def make_train_step_fn(cfg: VinceConfig, optimizer: OptimizerSpec):
-    """Build the train step ``(state, batch, seed) → (state, metrics)``.
+    """Build the eager train step ``(state, batch, seed) → (state, metrics)``.
     ``batch`` is a tuple of per-source dicts holding uint8 ``data`` and
     ``queue_data`` [B_s, H, W, 3] on the state's device; the metrics are
     0-dim tensors on that device."""
     full_f32_products()
 
     def step(state: VinceState, batch, seed: int = 0):
-        dev = state.device
-        q_all, k_all = _augment_sources(cfg, batch, _generator(dev, seed, state.step, 0))
-
-        # key (momentum) forward, no grad, shuffled BN
-        with torch.no_grad():
-            perm: Optional[torch.Tensor] = None
-            k_in = k_all
-            if cfg.shuffle_bn:
-                perm = make_shuffle_perm(_generator(dev, seed, state.step, 1), k_all.shape[0])
-                k_in = shuffle(k_all, perm)
-            k_emb = state.key_model(k_in)["embeddings"].float()
-            if perm is not None:
-                k_emb = unshuffle(k_emb, perm)
-        k_sources = [k_emb[a:b] for a, b in _source_offsets(cfg)]
-        queue_snapshot = state.queue.vectors  # read before this step's enqueue
-
-        # query forward + per-source losses
-        out = state.model(q_all)
-        q_emb = out["embeddings"].float()
-        losses, metrics = [], {}
-        for si, ((a, b), src) in enumerate(zip(_source_offsets(cfg), cfg.sources)):
-            mask, neg_mask = _source_masks(cfg, src, dev)
-            res = sharded_multi_pair_infonce(
-                q_emb[a:b], k_sources[si], mask, cfg.temperature,
-                queue_shard=queue_snapshot, batch_neg_mask=neg_mask,
-                use_fused_queue_kernel=cfg.use_fused_infonce)
-            losses.append(res["dist"])
-            for mk in ("nce_accuracy", "softmax_weight", "cosine_sim", "cosine_sim_neg_max"):
-                metrics.setdefault(mk, []).append(res[mk])
-        total = torch.stack(losses).mean()
-
-        # backward + SGD
-        opt = state.optimizer
-        opt.zero_grad(set_to_none=True)
-        total.backward()
-        for group in opt.param_groups:
-            group["lr"] = optimizer.lr(state.step)
-        opt.step()
-
-        # EMA of the tracked parameters, after the optimizer step
-        tracked, _ = split_vince_params(dict(state.model.named_parameters()))
-        key_params = dict(state.key_model.named_parameters())
-        ema_update([key_params[k] for k in tracked], tracked.values(), cfg.momentum)
-
-        # enqueue the keys, last
-        for si, src in enumerate(cfg.sources):
-            enqueue(state.queue, k_sources[si], src.source_id)
-
+        draws = _draw_step(cfg, batch, seed, state.step)
+        state.optimizer.set_lr(optimizer.lr(state.step))
+        metrics = _train_body(cfg, state, batch, draws)
         state.step += 1
-        out_metrics: Dict[str, torch.Tensor] = {
-            k: torch.stack(v).mean().detach() for k, v in metrics.items()}
-        out_metrics["loss/nce_loss"] = total.detach()
-        out_metrics["loss/total_loss"] = total.detach()
-        return state, out_metrics
+        return state, metrics
 
     return step
+
+
+WARMUP_STEPS = 3  # eager steps before the capture
+
+
+def _leaves(tree):
+    """The tensors of a tree of dataclasses, dicts (by sorted key), lists and
+    tuples, in a fixed order."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from _leaves(getattr(tree, f.name))
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for x in tree:
+            yield from _leaves(x)
+
+
+def _copy_leaves(dst, src) -> None:
+    dst, src = list(_leaves(dst)), list(_leaves(src))
+    if len(dst) != len(src) or any(d.shape != s.shape or d.dtype != s.dtype
+                                   for d, s in zip(dst, src)):
+        raise ValueError("a captured step takes inputs of the shapes and types it captured")
+    for d, s in zip(dst, src):
+        d.copy_(s)
+
+
+class _CapturedTrainStep:
+    """The train step as one CUDA graph (see ``make_train_step``)."""
+
+    def __init__(self, cfg: VinceConfig, optimizer: OptimizerSpec):
+        self.cfg, self.optimizer = cfg, optimizer
+        self.state: Optional[VinceState] = None  # the state the graph is bound to
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.static_batch = self.static_draws = self.static_metrics = None
+        self.calls = 0
+
+    def __call__(self, state: VinceState, batch, seed: int = 0):
+        if self.state is None:
+            if state.device.type != "cuda":
+                raise ValueError(f"a captured step runs on a CUDA device, not {state.device}")
+            self.state = state
+        elif state is not self.state:
+            raise ValueError("this captured step is bound to another state; make a step for "
+                             "each state")
+        draws = _draw_step(self.cfg, batch, seed, state.step)
+        state.optimizer.set_lr(self.optimizer.lr(state.step))
+        if self.calls < WARMUP_STEPS:
+            metrics = self._warm_up(state, batch, draws)
+        elif self.graph is None:
+            metrics = self._capture(state, batch, draws)
+        else:
+            _copy_leaves(self.static_batch, batch)
+            _copy_leaves(self.static_draws, draws)
+            self.graph.replay()
+            # the body's Python, and so enqueue's host count, ran at capture only
+            state.queue.count_inserted(self.cfg.total_batch)
+            metrics = self.static_metrics
+        self.calls += 1
+        state.step += 1
+        return state, {k: v.clone() for k, v in metrics.items()}
+
+    def _warm_up(self, state, batch, draws):
+        # on a side stream, as PyTorch's recipe for capturing a whole network
+        # asks: it makes the libraries' workspaces and the kernels' one-time
+        # attributes before the capture
+        main = torch.cuda.current_stream(state.device)
+        side = torch.cuda.Stream(state.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            metrics = _train_body(self.cfg, state, batch, draws)
+        main.wait_stream(side)
+        return metrics
+
+    def _capture(self, state, batch, draws):
+        static_batch = tuple({k: v.clone() for k, v in src.items()} for src in batch)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            metrics = _train_body(self.cfg, state, static_batch, draws)
+        # kept only once the capture succeeded; a capture runs nothing, so
+        # this call's step is the first replay
+        self.graph, self.static_batch, self.static_draws = graph, static_batch, draws
+        self.static_metrics = metrics
+        graph.replay()
+        return metrics
+
+
+def make_train_step(cfg: VinceConfig, optimizer: OptimizerSpec):
+    """The captured train step ``(state, batch, seed) → (state, metrics)``, the
+    counterpart of ``jax.jit(make_train_step_fn(...), donate_argnums=(0,))``,
+    with the meaning of ``make_train_step_fn``'s step.
+
+    The first ``WARMUP_STEPS`` calls are real steps run eagerly. The next one
+    captures the body (augmentation apply → key forward → query forward and
+    backward → update → EMA → enqueue) in one ``torch.cuda.CUDAGraph`` and
+    replays it once. Every later call makes the step's draws eagerly, copies
+    them and the batch into the graph's static inputs, writes the learning
+    rate, and replays. The graph holds the addresses of one state's tensors,
+    so the step is bound to the first state it is given; another raises. If
+    the capture fails, the error surfaces: there is no eager fallback. The
+    kernels' launch counters move while the graph is captured and not when it
+    is replayed. The metrics are copies of the graph's outputs.
+    """
+    full_f32_products()
+    return _CapturedTrainStep(cfg, optimizer)
+
+
+def make_eval_step(cfg: VinceConfig):
+    """The validation step ``(state, batch, seed) → metrics``: the training
+    forward and loss with the val-mode augmentation and train-mode BatchNorm
+    that records nothing (the JAX step runs train-mode BN, as the reference's
+    validation does, and drops the statistics); no gradient, and no change to
+    the state."""
+    full_f32_products()
+
+    @torch.no_grad()
+    def eval_step(state: VinceState, batch, seed: int = 0) -> Dict[str, torch.Tensor]:
+        draws = _draw_step(cfg, batch, seed, state.step, mode="val")
+        q_all, k_all = _augment_sources(cfg, batch, draws.augment)
+        with unrecorded_batch_stats(state.model, state.key_model):
+            k_sources = _key_embeddings(cfg, state, k_all, draws.perm)
+            q_emb = state.model(q_all)["embeddings"].float()
+        loss, metrics = _source_losses(cfg, q_emb, k_sources, state.queue.vectors)
+        metrics["loss/nce_loss"] = loss
+        return metrics
+
+    return eval_step
+
+
+def make_key_prefill_fn(cfg: VinceConfig, src_idx: int):
+    """The key embedder for the queue prefill, ``(state, images, seed) →``
+    f32 embeddings: train-mode key augmentation of the source's
+    ``queue_data`` and a train-mode forward of the key encoder whose
+    statistics are dropped, the distribution of the keys a train step
+    enqueues. Every parameter of the port's encoder is EMA-tracked, so the
+    key encoder is JAX's merge of the key's tracked parameters and the
+    query's rest."""
+    tcfg = _transform(cfg, cfg.sources[src_idx])
+    full_f32_products()
+
+    @torch.no_grad()
+    def prefill(state: VinceState, images, seed: int = 0) -> torch.Tensor:
+        imgs = augment_batch(_generator(images.device, seed, src_idx, 2), images, tcfg,
+                             dtype=cfg.compute_dtype)
+        with unrecorded_batch_stats(state.key_model):
+            return state.key_model(imgs)["embeddings"].float()
+
+    return prefill
+
+
+def _eval_forward(cfg: VinceConfig, model: VinceEncoder, images):
+    """uint8 images → /255 → normalised → eval-mode forward (running statistics)."""
+    imgs = _finalize(images.float() / 255.0, AugmentConfig()).to(cfg.compute_dtype)
+    training = model.training
+    model.eval()
+    try:
+        return model(imgs)
+    finally:
+        model.train(training)
+
+
+def make_embed_fn(cfg: VinceConfig, use_key_encoder: bool = False):
+    """The embedding extractor for validation and kNN probes, ``(state,
+    images) → (embeddings, extracted_features)`` in f32, eval-mode BN; with
+    ``use_key_encoder`` the key encoder's parameters and statistics."""
+    full_f32_products()
+
+    @torch.no_grad()
+    def embed(state: VinceState, images):
+        out = _eval_forward(cfg, state.key_model if use_key_encoder else state.model, images)
+        return out["embeddings"].float(), out["extracted_features"].float()
+
+    return embed
+
+
+def make_panel_fn(cfg: VinceConfig):
+    """The forward for the training loop's image panels, ``(state, images) →
+    {"embeddings"}`` (the attention masks and the ImageNet logits of the JAX
+    panel need heads that are not ported)."""
+    full_f32_products()
+
+    @torch.no_grad()
+    def panel(state: VinceState, images) -> Dict[str, torch.Tensor]:
+        return {"embeddings": _eval_forward(cfg, state.model, images)["embeddings"].float()}
+
+    return panel

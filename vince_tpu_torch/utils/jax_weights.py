@@ -92,8 +92,10 @@ def load_jax_variables(model: torch.nn.Module, params: Dict, batch_stats: Dict) 
 
 
 def _find_trace(opt_state: Any):
-    """The momentum ``trace`` tree inside an optax SGD state."""
-    if hasattr(opt_state, "trace"):
+    """The momentum ``trace`` tree inside an optax SGD or LARS state: the
+    field of optax's ``TraceState`` (a named tuple), not an array's ``trace``
+    method, which LARS's schedule count ahead of it also has."""
+    if "trace" in getattr(opt_state, "_fields", ()):
         return opt_state.trace
     if isinstance(opt_state, (tuple, list)):
         for s in opt_state:
@@ -106,7 +108,9 @@ def _find_trace(opt_state: Any):
 def load_jax_state(state, jax_state) -> None:
     """Load a JAX ``VinceState`` with numpy leaves into the port's state: query
     and key weights and statistics, the queue with its pointers, the step and
-    the SGD momentum traces."""
+    the momentum traces of its SGD or LARS (the port's optimizer keeps optax's
+    trace of its kind). Tensors are written in place, so a captured step bound
+    to ``state`` replays on the loaded values."""
     load_jax_variables(state.model, jax_state.params, jax_state.batch_stats)
     key_params = dict(jax_state.params)
     key_params.update(jax_state.key_params)
@@ -115,11 +119,13 @@ def load_jax_state(state, jax_state) -> None:
     dev = state.queue.vectors.device
     state.queue.vectors.copy_(torch.from_numpy(np.array(q.vectors, np.float32)).to(dev))
     state.queue.sources.copy_(torch.from_numpy(np.array(q.sources, np.int32)).to(dev))
-    state.queue.tail, state.queue.total = int(q.tail), int(q.total)
+    state.queue.tail.fill_(int(q.tail))
+    state.queue.total.fill_(int(q.total))
+    state.queue.inserted = int(q.total)
     state.step = int(jax_state.step)
     trace = _find_trace(jax_state.opt_state)
     if trace is not None:
         buffers = _tensors(flax_to_state_dict(trace, {}), state.model)
         params = dict(state.model.named_parameters())
         for name, buf in buffers.items():
-            state.optimizer.state[params[name]]["momentum_buffer"] = buf
+            state.optimizer.state[params[name]]["momentum_buffer"].copy_(buf)
