@@ -30,7 +30,18 @@ Phases:
      after each, and the eval step against the eval step through the plain
      versions;
   7. call the stand-alone op ``affine_conv3x3_stats`` (no model uses it),
-     forward and backward, at its three shapes.
+     forward and backward, at its three shapes;
+  8. the heads, ResNet50 at the same shapes in two configurations:
+     ``ResNet50-IN+YT-heads`` (an ImageNet source of 64 rows with labels and
+     the CE decoders, a video source of 64 rows, the attention pool and
+     self-batch InfoNCE) and ``ResNet50-jigsaw`` (one source of 128 rows,
+     the jigsaw head): eager steps of each kind (no jigsaw; jigsaw on the
+     query, the key, both sides, and the query with the alignment term) with
+     their launches (K1 once per source, K2 13 times per train-mode forward)
+     and against the plain versions; the captured steps against the eager
+     ones under cuDNN deterministic, the jigsaw's query-side and key-side
+     graphs on one state alternated by a seeded coin; 5 timed replays of
+     each graph; the eval step and the panel once each.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -821,7 +832,6 @@ def log_times(what, ms_step, step_ms, peak):
 
 
 def run_train(dev, backbone, steps=5, warmup=2, profile_path=None):
-    from vince_tpu_torch.ops.kernels import plain_versions
     from vince_tpu_torch.solvers.vince_step import (
         build_vince_optimizer, init_vince_state, make_train_step_fn)
 
@@ -851,9 +861,18 @@ def run_train(dev, backbone, steps=5, warmup=2, profile_path=None):
     if not bool(torch.isfinite(qn).all()) or (qn - 1).abs().max().item() > 1e-3:
         fail("queue rows are not unit vectors after the enqueues")
 
-    # one more step from the same state and batch: kernels vs plain versions.
-    # bf16 with sums in another order: loss within 1e-2 relative, weight update
-    # within 5e-2 relative in norm
+    plain_check(step, state, batch, spread=True)
+    return {"ms_per_step": ms_step, "launches": launches, "peak_gib": peak}
+
+
+def plain_check(step, state, batch, spread=False):
+    """One more step from the same state and batch through the kernels and
+    through the plain versions: bf16 with sums in another order, so the loss
+    within 1e-2 relative and the weight update within 5e-2 relative in norm.
+    With ``spread``, the same step once more through the kernels, to print
+    the eager step's own spread."""
+    from vince_tpu_torch.ops.kernels import plain_versions
+
     log("plain-version check: one step from the same state through the kernels and "
         "through the plain versions")
     s_kernel, s_plain = copy.deepcopy(state), copy.deepcopy(state)
@@ -868,14 +887,14 @@ def run_train(dev, backbone, steps=5, warmup=2, profile_path=None):
         f"|update_kernel - update_plain| / |update_plain| = {upd_err:.3e} (tol 5e-2)")
     if loss_rel > 1e-2 or upd_err > 5e-2:
         fail("the kernel step and the plain-version step disagree")
-    # the eager step's own spread: the same step once more, through the kernels
     del s_plain
-    s_again = copy.deepcopy(state)
-    step(s_again, batch, 1)
-    log(f"  the same step again through the kernels: |update - update_first| / "
-        f"|update_first| = {update_gap(s_kernel, s_again, before):.3e} (information: "
-        f"cuDNN's default algorithms may sum in no fixed order)")
-    return {"ms_per_step": ms_step, "launches": launches, "peak_gib": peak}
+    if spread:
+        s_again = copy.deepcopy(state)
+        step(s_again, batch, 1)
+        log(f"  the same step again through the kernels: |update - update_first| / "
+            f"|update_first| = {update_gap(s_kernel, s_again, before):.3e} (information: "
+            f"cuDNN's default algorithms may sum in no fixed order)")
+    return loss_rel, upd_err
 
 
 def update_gap(ref_state, state, init):
@@ -1096,6 +1115,285 @@ def run_conv_bn_op(dev):
     return launches
 
 
+# phase 8: the heads and the step branches that use them, ResNet50 at the
+# step's width (128 rows, 224x224 from 256x256, q=65536, embeddings 128, bf16,
+# fused InfoNCE, the fold kernel, SGD lr 0.03)
+HEAD_CONFIGS = {
+    "ResNet50-IN+YT-heads": dict(
+        sources=(dict(name="IN", batch_size=64, num_frames=4,
+                      transform="RepeatedImagenetTransform", use_imagenet_ce=True,
+                      source_id=0),
+                 dict(name="YT", batch_size=64, num_frames=4, transform="StandardVideoTransform",
+                      source_id=1)),
+        options=dict(use_attention=True, self_batch=True)),
+    "ResNet50-jigsaw": dict(
+        sources=(dict(name="YT", batch_size=128, num_frames=4, transform="JigsawTransform",
+                      source_id=1),),
+        options=dict(jigsaw=True)),
+}
+NUM_CLASSES = 1000  # the ImageNet decoders' classes
+
+
+def heads_config(name, **extra):
+    from vince_tpu_torch.solvers.vince_step import SourceSpec, VinceConfig
+
+    spec = HEAD_CONFIGS[name]
+    return VinceConfig(
+        sources=tuple(SourceSpec(**src) for src in spec["sources"]), backbone="ResNet50",
+        embed_size=128, image_size=224, queue_size=65536, temperature=0.07, momentum=0.999,
+        compute_dtype=torch.bfloat16, shuffle_bn=True, bn_fold="expand", fold_kernel=True,
+        use_fused_infonce=True, jitter_order="torchvision", **spec["options"], **extra)
+
+
+def heads_per_step(cfg, side=None):
+    """K1 once per source; K2 at the 13 sites of each train-mode forward: the
+    key's, the query's and, on a one-sided jigsaw step with the alignment
+    term, the second query forward's (the 1152 patches of 75x75 of a jigsaw
+    forward give M = 115200, 28800 and 10368 at stages 2-4, all taken)."""
+    align = cfg.jigsaw_align_weight > 0 and side in ("query", "key")
+    return {"queue_logsumexp": len(cfg.sources), "affine_relu_dot_moments": 13 * (2 + align)}
+
+
+def heads_batch(dev, cfg, seed=0):
+    """Per source uint8 canvases from ``seed`` (``queue_data`` the rows
+    reversed) and, for a CE source, labels in [0, 1000)."""
+    rng = np.random.RandomState(seed)
+    batch = []
+    for src in cfg.sources:
+        host = rng.randint(0, 256, (src.batch_size, CANVAS, CANVAS, 3), np.uint8)
+        b = {"data": torch.from_numpy(host).to(dev),
+             "queue_data": torch.from_numpy(host[::-1].copy()).to(dev)}
+        if src.use_imagenet_ce:
+            b["labels"] = torch.from_numpy(rng.randint(0, NUM_CLASSES, src.batch_size)).to(dev)
+        batch.append(b)
+    return tuple(batch)
+
+
+def side_name(side):
+    return "no jigsaw" if side is None else f"jigsaw {side}"
+
+
+def heads_eager(dev, cfg, state, side, label, steps=3):
+    """An eager step of ``side`` on ``state``: one warm-up step, ``steps``
+    timed with their launches asserted, then the plain-version check."""
+    from vince_tpu_torch.solvers.vince_step import build_vince_optimizer, make_train_step_fn
+
+    step = make_train_step_fn(cfg, build_vince_optimizer(0.03), side)
+    batch = heads_batch(dev, cfg)
+    log(f"heads, eager: {label}, {side_name(side)}")
+    _, metrics = step(state, batch, 0)
+    log("    metrics: " + ", ".join(f"{k} {v.item():.5f}" for k, v in sorted(metrics.items())))
+    reset_counts()
+    ms_step, step_ms, _, peak = time_steps(step, state, batch, steps)
+    log_times("eager", ms_step, step_ms, peak)
+    per_step = heads_per_step(cfg, side)
+    launches = expect_counts(f"{steps} eager steps", {k: n * steps for k, n in per_step.items()})
+    loss_rel, upd_err = plain_check(step, state, batch)
+    return launches, {"eager_ms": ms_step, "eager_peak_gib": peak, "plain_loss_gap": loss_rel,
+                      "plain_update_gap": upd_err}
+
+
+def jigsaw_alternation(seed=0):
+    """The solver's 50/50 coin of the jigsawed side, seeded, drawn until each
+    side has warmed up, captured and replayed once."""
+    from vince_tpu_torch.solvers.vince_step import WARMUP_STEPS
+
+    coin, sides = np.random.RandomState(seed), []
+    while min(sides.count("query"), sides.count("key")) < WARMUP_STEPS + 2:
+        sides.append("key" if coin.rand() < 0.5 else "query")
+    return sides
+
+
+def heads_captured(dev, cfg, sides, label):
+    """Captured steps of each side in ``sides`` on one state against eager
+    steps of the same sides on another, both from seed 0, call by call in the
+    order of ``sides`` on batches 0, 1, ... with cuDNN deterministic; each
+    graph warms up, captures and replays on its own, its launches counted at
+    the warm-up calls and the capture and none at a replay, and the queue's
+    host count advances once per call, whichever graph ran."""
+    from vince_tpu_torch.solvers.vince_step import (
+        WARMUP_STEPS, build_vince_optimizer, init_vince_state, make_train_step,
+        make_train_step_fn)
+
+    opt = build_vince_optimizer(0.03)
+    log(f"heads, captured against eager: {label}, calls "
+        + " ".join(side_name(side) for side in sides) + "; cuDNN deterministic")
+    torch.backends.cudnn.deterministic = True
+    s_graph = init_vince_state(0, cfg, opt, device=dev)
+    s_eager = init_vince_state(0, cfg, opt, device=dev)
+    init = {k: v.detach().clone() for k, v in s_eager.model.named_parameters()}
+    graphs = {side: make_train_step(cfg, opt, side) for side in sides}
+    eagers = {side: make_train_step_fn(cfg, opt, side) for side in sides}
+    gaps, bit_equal, capture_launches = [], True, {}
+    for i, side in enumerate(sides):
+        graph, batch = graphs[side], heads_batch(dev, cfg, seed=i)
+        calls = graph.calls
+        what = ("eager warm-up" if calls < WARMUP_STEPS else "capture, then replay"
+                if calls == WARMUP_STEPS else "replay")
+        reset_counts()
+        _, m_g = graph(s_graph, batch, i)
+        torch.cuda.synchronize()
+        launches = expect_counts(f"call {i} ({side_name(side)}: {what})",
+                                 heads_per_step(cfg, side) if calls <= WARMUP_STEPS else {})
+        if calls == WARMUP_STEPS:
+            capture_launches[side] = launches
+        _, m_e = eagers[side](s_eager, batch, i)
+        loss_g, loss_e = m_g["loss/total_loss"].item(), m_e["loss/total_loss"].item()
+        if not math.isfinite(loss_g):
+            fail("non-finite loss in the captured step")
+        gaps.append(abs(loss_g - loss_e) / abs(loss_e))
+        bit_equal = bit_equal and all(torch.equal(m_g[k], m_e[k]) for k in m_e)
+        log(f"    step {i}: loss eager {loss_e:.8f} captured {loss_g:.8f} "
+            f"(rel gap {gaps[-1]:.3e})")
+    torch.backends.cudnn.deterministic = False
+    if any(g.graph is None for g in graphs.values()):
+        fail("a captured step did not capture")
+    upd = update_gap(s_eager, s_graph, init)
+    log(f"  after {len(sides)} steps: max loss gap {max(gaps):.3e} (tol 1e-2), every metric "
+        f"bit-equal: {bit_equal}, |update_captured - update_eager| / |update_eager| = "
+        f"{upd:.3e} (tol 5e-2)")
+    for name in ("tail", "total"):
+        if not torch.equal(getattr(s_eager.queue, name), getattr(s_graph.queue, name)):
+            fail(f"queue {name}: eager and captured differ")
+    if (s_graph.queue.inserted, s_graph.step) != (s_eager.queue.inserted, s_eager.step) or \
+            s_graph.queue.inserted != min(len(sides) * BATCH_SIZE, cfg.queue_size):
+        fail("the captured steps' host counts differ from the eager steps'")
+    if max(gaps) > 1e-2 or upd > 5e-2:
+        fail("the captured step and the eager step disagree")
+    return capture_launches, {"loss_gap": max(gaps), "update_gap": upd, "bit_equal": bit_equal}
+
+
+def heads_timed(dev, cfg, sides, label, timed=5, profile_path=None):
+    """Under cuDNN's defaults, a new state and a new graph for each side,
+    each warmed up and captured, then ``timed`` replays of each (and, with
+    ``profile_path``, one traced replay); the peak reserved memory holds
+    every graph's pool. Returns the state and the times by side."""
+    from vince_tpu_torch.solvers.vince_step import (
+        WARMUP_STEPS, build_vince_optimizer, init_vince_state, make_train_step)
+
+    opt = build_vince_optimizer(0.03)
+    log(f"heads, captured and timed: {label}, a graph for each of "
+        + ", ".join(side_name(side) for side in sides) + " on one state")
+    state = init_vince_state(0, cfg, opt, device=dev)
+    graphs = {side: make_train_step(cfg, opt, side) for side in sides}
+    for i in range(WARMUP_STEPS + 1):
+        for graph in graphs.values():
+            graph(state, heads_batch(dev, cfg, seed=i), i)
+    batch = heads_batch(dev, cfg)
+    times = {}
+    for side, graph in graphs.items():
+        reset_counts()
+        ms_step, step_ms, _, peak = time_steps(graph, state, batch, timed)
+        log_times(f"captured, {side_name(side)}", ms_step, step_ms, peak)
+        expect_counts(f"{timed} timed replays", {})
+        times[side] = {"captured_ms": ms_step, "captured_peak_gib": peak}
+        if profile_path:
+            root, ext = os.path.splitext(profile_path)
+            suffix = "" if side is None else f".{side}"
+            profile_step(graph, state, batch, f"{root}.{label}{suffix}.captured{ext}")
+    return state, times
+
+
+def heads_eval_and_panel(dev, cfg, state, label):
+    """The eval step and the panel once each on ``state``: launches, the
+    state bit-identical, finite metrics, unit embeddings; with the attention
+    pool, masks that sum to 1 per image; with the decoders, [B, 1000] finite
+    logits."""
+    from vince_tpu_torch.solvers.vince_step import make_eval_step, make_panel_fn
+
+    batch = heads_batch(dev, cfg, seed=10)
+    images = torch.cat([b["data"] for b in batch])  # 128 rows from every source
+    log(f"heads, eval and panel: {label}")
+    calls = {"eval": (lambda: make_eval_step(cfg)(state, batch, 0),
+                      {"queue_logsumexp": len(cfg.sources), "affine_relu_dot_moments": 26}),
+             "panel": (lambda: make_panel_fn(cfg)(state, images), {})}
+    launches = {}
+    for name, (call, expected) in calls.items():
+        tensors, counts = state_snapshot(state)
+        reset_counts()
+        out = call()
+        torch.cuda.synchronize()
+        launches[name] = expect_counts(name, expected)
+        after, after_counts = state_snapshot(state)
+        if counts != after_counts or not all(torch.equal(x, y) for x, y in zip(tensors, after)):
+            fail(f"{name} changed the state")
+        del tensors, after
+        log(f"    {name}: state bit-identical before and after")
+        if name == "eval":
+            if not all(math.isfinite(v.item()) for v in out.values()):
+                fail(f"eval: non-finite metrics {out}")
+            log("    " + ", ".join(f"{k} {v.item():.5f}" for k, v in sorted(out.items())))
+            continue
+        rows, keys = images.shape[0], {"embeddings"}
+        unit_rows(name, out["embeddings"])
+        if cfg.use_attention:
+            keys.add("attention_masks")
+            masks = out["attention_masks"]
+            sums = masks.sum(dim=(1, 2, 3))
+            grid = (rows, images.shape[1] // 32, images.shape[2] // 32, 1)  # the raw canvases
+            if masks.shape != grid or (sums - 1).abs().max().item() > 1e-5:
+                fail(f"panel: attention masks {tuple(masks.shape)} sum to "
+                     f"{sums.min().item()}-{sums.max().item()}")
+            log(f"    attention masks {tuple(masks.shape)}, sums within "
+                f"{(sums - 1).abs().max().item():.2e} of 1")
+        if any(src.use_imagenet_ce for src in cfg.sources):
+            for di in range(2):
+                logits = out[f"imagenet_logits_{di}"]
+                keys.add(f"imagenet_logits_{di}")
+                if logits.shape != (rows, NUM_CLASSES) or not bool(torch.isfinite(logits).all()):
+                    fail(f"panel: logits {di} of shape {tuple(logits.shape)} or not finite")
+            log(f"    imagenet logits 2 x {tuple(logits.shape)}, finite")
+        if set(out) != keys:
+            fail(f"panel: outputs {sorted(out)}, expected {sorted(keys)}")
+    return launches
+
+
+def run_heads(dev, profile_path=None):
+    """Phase 8: both head configurations. Returns the launches of each path
+    and the times."""
+    from vince_tpu_torch.solvers.vince_step import build_vince_optimizer, init_vince_state
+
+    paths, times = {}, {}
+    label = "ResNet50-IN+YT-heads"
+    cfg = heads_config(label)
+    log(f"phase 8, {label}: IN 64 rows (16 images x 4 views, CE, labels from the seed) + YT "
+        "64 rows (16 videos x 4 frames), attention pool, self-batch")
+    state = init_vince_state(0, cfg, build_vince_optimizer(0.03), device=dev)
+    paths[f"{label} eager, 3 steps"], times[label] = heads_eager(dev, cfg, state, None, label)
+    del state
+    capture, times[f"{label} agreement"] = heads_captured(dev, cfg, [None] * 5, label)
+    paths[f"{label} captured (at the capture)"] = capture[None]
+    state, t = heads_timed(dev, cfg, [None], label, profile_path=profile_path)
+    times[label].update(t[None])
+    for name, launches in heads_eval_and_panel(dev, cfg, state, label).items():
+        paths[f"{label} {name}"] = launches
+    del state
+
+    label = "ResNet50-jigsaw"
+    cfg = heads_config(label)
+    log(f"phase 8, {label}: YT 128 rows (32 videos x 4 frames), 1152 patches of 75x75 on a "
+        "jigsawed side")
+    state = init_vince_state(0, cfg, build_vince_optimizer(0.03), device=dev)
+    for side in ("query", "key", "both"):
+        paths[f"{label} eager {side}, 3 steps"], times[f"{label} {side}"] = heads_eager(
+            dev, cfg, state, side, label)
+    aligned = heads_config(label, jigsaw_align_weight=0.5)
+    paths[f"{label} eager query + align, 3 steps"], times[f"{label} query + align"] = \
+        heads_eager(dev, aligned, state, "query", label + ", jigsaw_align_weight 0.5")
+    del state
+    sides = jigsaw_alternation()
+    capture, times[f"{label} agreement"] = heads_captured(dev, cfg, sides, label)
+    for side, launches in capture.items():
+        paths[f"{label} captured {side} (at the capture)"] = launches
+    state, t = heads_timed(dev, cfg, ["query", "key"], label, profile_path=profile_path)
+    for side in ("query", "key"):
+        times[f"{label} {side}"].update(t[side])
+    for name, launches in heads_eval_and_panel(dev, cfg, state, label).items():
+        paths[f"{label} {name}"] = launches
+    del state
+    return paths, times
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--kernels-only", action="store_true",
@@ -1104,8 +1402,8 @@ def main():
                         help="print ptxas register and shared-memory use")
     parser.add_argument("--profile", metavar="PATH",
                         help="after each phase's timed steps, trace one step and write "
-                             "the device-time table to PATH with the backbone's name "
-                             "before its extension")
+                             "the device-time table to PATH with the backbone's (or the "
+                             "head configuration's) name before its extension")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1141,6 +1439,8 @@ def main():
         _, lars = run_captured(dev, "ResNet50", kind="lars", timed=0)
         paths["ResNet50 captured LARS (at the capture)"] = lars["capture_launches"]
         paths["stand-alone op"] = {"affine_conv3x3_stats": run_conv_bn_op(dev)}
+        head_paths, head_times = run_heads(dev, profile_path=args.profile)
+        paths.update(head_paths)
         for k in kernels:
             k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items() if k["name"] in n}
             k["launches"] = sum(k["launches_by_path"].values())
@@ -1148,6 +1448,10 @@ def main():
             log(f"ms/step {b}: eager {eager['ms_per_step']:.3f} (peak {eager['peak_gib']:.3f} "
                 f"GiB), captured {captured['ms_per_step']:.3f} (peak "
                 f"{captured['peak_gib']:.3f} GiB); card {card}")
+        for what, t in head_times.items():
+            log(f"phase 8 {what}: " + ", ".join(
+                f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}" for k, v in t.items())
+                + f"; card {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,13 +1,18 @@
 """The port's augmentation against ``vince_tpu.ops.augment`` with the same
 injected draws: the bilinear and gaussian operators, ``color_jitter_apply``,
-``_finalize`` and the whole train-mode pipeline."""
+``_finalize`` and the whole train-mode pipeline, the jitter in the fixed
+order too, the val path, and the named pipelines' configs."""
 
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from vince_tpu.ops import augment as ja
+from vince_tpu.utils import transforms as jax_transforms
 from vince_tpu.utils.transforms import make_config as jax_make_config
 from vince_tpu_torch.ops import augment as ta
 from vince_tpu_torch.utils.transforms import make_config
@@ -152,3 +157,84 @@ def test_val_augment_batch_matches_jax(canvas, size):
     got = ta.augment_batch(None, _t(images), make_config("StandardVideoTransform", size),
                            train=False)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
+
+
+def _fixed_jitter_jax(img, d, cfg_j):
+    """JAX's ``_color_jitter_batch`` in the fixed order, its draws replaced,
+    in the order it makes them, by the test's: the apply coin, then the
+    brightness, contrast, saturation and hue draws before its own masking."""
+    values = iter([np.where(d["jitter"], 0.0, 1.0).astype(np.float32),
+                   d["fb"], d["fc"], d["fs"], d["fh"]])
+    return ja._color_jitter_batch(jax.random.PRNGKey(0), jnp.asarray(img), cfg_j,
+                                  draw=lambda key, **kw: jnp.asarray(next(values)))
+
+
+def _fixed_draws(d):
+    """The port's draws of the same values: factors 1 and shift 0 where the
+    coin said no jitter."""
+    on = d["jitter"]
+    return {**d, **{k: np.where(on, d[k], 1.0).astype(np.float32) for k in ("fb", "fc", "fs")},
+            "fh": np.where(on, d["fh"], 0.0).astype(np.float32)}
+
+
+@pytest.mark.parametrize("hue", [0.2, 0.0])
+def test_fixed_order_jitter_matches_jax(hue):
+    """``jitter_order="fixed"``: brightness, contrast, saturation, then the
+    YIQ hue rotation, against JAX's own function with the same draws."""
+    d = _draws(seed=3)
+    img = (_images(seed=4) / 255.0).astype(np.float32)
+    cfg_j = ja.AugmentConfig(hue=hue, jitter_order="fixed")
+    cfg_t = ta.AugmentConfig(hue=hue, jitter_order="fixed")
+    ref = _fixed_jitter_jax(img, d, cfg_j)
+    f = _fixed_draws(d)
+    got = ta.color_jitter_fixed(_t(img), *(_t(f[k]) for k in ("fb", "fc", "fs", "fh")), cfg_t)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=2e-6)
+
+
+def test_fixed_order_pipeline_matches_jax_composition():
+    """``apply_augment`` in the fixed order (JigsawTransform: strong jitter,
+    grayscale, blur) equals the JAX pipeline's steps in ``augment_batch``
+    order with the same draws; no identity where jitter is off (JAX keeps the
+    rotation's rounding there too)."""
+    d = _draws(seed=5)
+    images = _images(seed=6)
+    cfg_j = jax_make_config("JigsawTransform", OUT, jitter_order="fixed")
+    cfg_t = make_config("JigsawTransform", OUT, jitter_order="fixed")
+    imgs = jnp.asarray(images).astype(jnp.float32) / 255.0
+    w_y = ja._bilinear_matrix(jnp.asarray(d["crop_i"]), jnp.asarray(d["crop_h"]), IN, OUT)
+    w_x = ja._bilinear_matrix(jnp.asarray(d["crop_j"]), jnp.asarray(d["crop_w"]), IN, OUT,
+                              flip=jnp.asarray(d["flip"]))
+    out = jnp.clip(ja._apply_separable(imgs, w_y, w_x), 0.0, 1.0)
+    out = _fixed_jitter_jax(out, d, cfg_j)
+    gray = jnp.broadcast_to(ja._rgb_to_grayscale(out), out.shape)
+    out = jnp.where(jnp.asarray(d["gray"])[:, None, None, None], gray, out)
+    g = ja._gaussian_matrix(jnp.asarray(d["sigma"]), jnp.asarray(d["blur"]), OUT,
+                            cfg_j.blur_kernel)
+    ref = ja._finalize(ja._apply_separable(out, g, g), cfg_j)
+
+    draws = ta.AugmentDraws(**{k: _t(v) for k, v in _fixed_draws(d).items()})
+    draws.perm = draws.perm.long()
+    got = ta.apply_augment(_t(images), draws, cfg_t)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=2e-5)
+
+
+def test_fixed_order_draws_keep_the_unclipped_factor_range():
+    """The fixed order draws factors in [1 − s, 1 + s] as JAX's does; the
+    torchvision order clips the range at 0."""
+    cfg = ta.AugmentConfig(brightness=1.5, color_jitter_prob=1.0)
+    for order, low in (("fixed", -0.5), ("torchvision", 0.0)):
+        d = ta.draw_augment_params(torch.Generator().manual_seed(0), 4096, 40, 40,
+                                   ta.AugmentConfig(**{**cfg.__dict__, "jitter_order": order}))
+        assert low <= d.fb.min() < low + 0.05 and 2.45 < d.fb.max() <= 2.5, order
+    with pytest.raises(ValueError, match="jitter_order"):
+        ta.draw_augment_params(torch.Generator(), 2, 40, 40, ta.AugmentConfig(jitter_order="yiq"))
+
+
+@pytest.mark.parametrize("name", jax_transforms.__all__)
+@pytest.mark.parametrize("jitter_order", [None, "fixed"])
+def test_named_pipelines_match_jax(name, jitter_order):
+    """Each of the JAX package's named pipelines has the port's config field
+    for field."""
+    ref = jax_make_config(name, (48, 40), jitter_order=jitter_order)
+    got = make_config(name, (48, 40), jitter_order=jitter_order)
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)

@@ -13,11 +13,23 @@ the uncentered variance max(E[x²]−μ², 0), and running averages updated as
 batch's statistics and leaves the running averages as they were, as the JAX
 eval and prefill steps do when they drop the ``batch_stats`` they mutated.
 
-``bn_fold != "none"`` folds the batch statistics of the expanding 1×1 convs
-into their weights from the input moments (``folded_dot_bn``); with
+``bn_fold="expand"`` folds the batch statistics of the expanding 1×1 convs
+(conv3 and the downsample) into their weights from the input moments
+(``folded_dot_bn``), and ``"all"`` folds a bottleneck's conv1 too; with
 ``fold_kernel`` the bottleneck chain bn2 → relu → conv3 → bn3 runs through
 K2 (``fused_bn_relu_folded_dot``) at the sites ``_kernel_site_supported``
 admits, the same sites as in JAX.
+
+``norm_kind="groupnorm"`` puts flax's ``GroupNorm`` (32 groups, ε = 1e-6, no
+running statistics) in every norm's place. It has no batch statistics to
+fold, so ``bn_fold`` is ignored and the blocks run unfolded, without K2, as
+in JAX.
+
+``stem_kind`` chooses the stem's arithmetic, not its math: "s2d" runs the
+7×7 stride-2 convolution in the compute dtype (the JAX module casts its
+filter to it), "conv7" in float32, as flax promotes the images to the f32
+filter of its ``nn.Conv``; the stem's BatchNorm casts back to the compute
+dtype either way.
 """
 
 import contextlib
@@ -64,6 +76,13 @@ class StemConvS2D(Conv2d):
 
     def __init__(self, cin: int, cout: int):
         super().__init__(cin, cout, 7, stride=2, padding=3)
+
+
+class StemConv7(StemConvS2D):
+    """The same 7×7 stride-2 stem in float32 whatever the input's type."""
+
+    def forward(self, x):
+        return super().forward(x.float())
 
 
 class Conv1x1(nn.Module):
@@ -134,6 +153,34 @@ class BatchNorm(nn.Module):
             mean, var = self.batch_stats(None, None)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return ((x.float() - mean) * mul + self.bias).to(x.dtype)
+
+
+class GroupNorm(nn.Module):
+    """flax ``GroupNorm`` over the last (channel) dimension: per sample and
+    group, E[x] and max(E[x²]−E[x]², 0) over H, W and the group's channels,
+    in float32; no running statistics."""
+
+    def __init__(self, features: int, zero_scale: bool = False, groups: int = 32,
+                 eps: float = 1e-6):
+        super().__init__()
+        if features % groups:
+            raise ValueError(f"{groups} groups do not divide {features} channels")
+        self.weight = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features))
+        self.groups, self.eps, self.zero_scale = groups, eps, zero_scale
+
+    def reset_parameters(self, generator=None):
+        nn.init.constant_(self.weight, 0.0 if self.zero_scale else 1.0)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        n, c, g = x.shape[0], x.shape[-1], self.groups
+        x32 = x.float().reshape(n, -1, g, c // g)
+        mean = x32.mean(dim=(1, 3), keepdim=True)
+        var = torch.clamp((x32 * x32).mean(dim=(1, 3), keepdim=True) - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.reshape(g, c // g)
+        y = (x32 - mean) * mul + self.bias.reshape(g, c // g)
+        return y.reshape(x.shape).to(x.dtype)
 
 
 @contextlib.contextmanager
@@ -223,19 +270,21 @@ def _kernel_site_supported(y, features: int) -> bool:
 
 
 class BasicBlock(nn.Module):
-    """2×(3×3 conv) residual block."""
+    """2×(3×3 conv) residual block (``fold_all`` is the bottleneck's: this
+    block has no 1×1 conv1)."""
 
     expansion = 1
 
     def __init__(self, cin: int, filters: int, stride: int = 1, downsample: bool = False,
-                 fold: bool = False, fold_kernel: bool = False, dtype=torch.float32):
+                 fold: bool = False, fold_kernel: bool = False, fold_all: bool = False,
+                 dtype=torch.float32, norm=BatchNorm):
         super().__init__()
         self.conv1 = Conv2d(cin, filters, 3, stride=stride, padding=1)
-        self.bn1 = BatchNorm(filters)
+        self.bn1 = norm(filters)
         self.conv2 = Conv2d(filters, filters, 3, padding=1)
-        self.bn2 = BatchNorm(filters, zero_scale=True)
+        self.bn2 = norm(filters, zero_scale=True)
         self.downsample = (
-            nn.ModuleList([Conv1x1(cin, filters, stride), BatchNorm(filters)])
+            nn.ModuleList([Conv1x1(cin, filters, stride), norm(filters)])
             if downsample else None
         )
         self.fold, self.dtype = fold, dtype
@@ -259,24 +308,29 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, cin: int, filters: int, stride: int = 1, downsample: bool = False,
-                 fold: bool = False, fold_kernel: bool = False, dtype=torch.float32):
+                 fold: bool = False, fold_kernel: bool = False, fold_all: bool = False,
+                 dtype=torch.float32, norm=BatchNorm):
         super().__init__()
         out_ch = filters * self.expansion
         self.conv1 = Conv1x1(cin, filters)
-        self.bn1 = BatchNorm(filters)
+        self.bn1 = norm(filters)
         self.conv2 = Conv2d(filters, filters, 3, stride=stride, padding=1)
-        self.bn2 = BatchNorm(filters)
+        self.bn2 = norm(filters)
         self.conv3 = Conv1x1(filters, out_ch)
-        self.bn3 = BatchNorm(out_ch, zero_scale=True)
+        self.bn3 = norm(out_ch, zero_scale=True)
         self.downsample = (
-            nn.ModuleList([Conv1x1(cin, out_ch, stride), BatchNorm(out_ch)])
+            nn.ModuleList([Conv1x1(cin, out_ch, stride), norm(out_ch)])
             if downsample else None
         )
         self.fold, self.fold_kernel, self.dtype = fold, fold_kernel, dtype
+        self.fold_all = fold and fold_all  # conv1 through folded_dot_bn too
 
     def forward(self, x):
         residual = x
-        y = torch.relu(self.bn1(self.conv1(x)))
+        if self.fold_all:
+            y = folded_dot_bn(x, self.conv1, self.bn1, self.dtype, act=torch.relu)
+        else:
+            y = torch.relu(self.bn1(self.conv1(x)))
         y = self.conv2(y)
         if self.fold:
             if self.downsample is not None:
@@ -302,15 +356,21 @@ class ResNet(nn.Module):
 
     def __init__(self, stage_sizes: Sequence[int], block_cls, num_filters: int = 64,
                  bn_fold: str = "none", fold_kernel: bool = False, dtype=torch.float32,
-                 in_channels: int = 3):
+                 in_channels: int = 3, norm_kind: str = "batchnorm", stem_kind: str = "conv7"):
         super().__init__()
-        if bn_fold not in ("none", "expand"):
-            raise ValueError(f"bn_fold={bn_fold!r} is not ported; use 'none' or 'expand'")
+        if bn_fold not in ("none", "expand", "all"):
+            raise ValueError(f"bn_fold={bn_fold!r}; choices: none, expand, all")
+        norms = {"batchnorm": BatchNorm, "groupnorm": GroupNorm}
+        stems = {"conv7": StemConv7, "s2d": StemConvS2D}
+        if norm_kind not in norms or stem_kind not in stems:
+            raise ValueError(f"norm_kind={norm_kind!r}, stem_kind={stem_kind!r}; choices: "
+                             f"{sorted(norms)}, {sorted(stems)}")
         self.dtype = dtype
-        self.conv1 = StemConvS2D(in_channels, num_filters)
-        self.bn1 = BatchNorm(num_filters)
+        norm = norms[norm_kind]
+        self.conv1 = stems[stem_kind](in_channels, num_filters)
+        self.bn1 = norm(num_filters)
         cin = num_filters
-        fold = bn_fold != "none"
+        fold = bn_fold != "none" and norm_kind == "batchnorm"
         for stage, num_blocks in enumerate(stage_sizes):
             filters = num_filters * 2 ** stage
             blocks = []
@@ -318,7 +378,8 @@ class ResNet(nn.Module):
                 s = (1 if stage == 0 else 2) if block == 0 else 1
                 needs_down = s != 1 or cin != filters * block_cls.expansion
                 blocks.append(block_cls(cin, filters, s, needs_down, fold=fold,
-                                        fold_kernel=fold_kernel, dtype=dtype))
+                                        fold_kernel=fold_kernel, fold_all=bn_fold == "all",
+                                        dtype=dtype, norm=norm))
                 cin = filters * block_cls.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
         self.num_stages = len(stage_sizes)
@@ -330,7 +391,7 @@ class ResNet(nn.Module):
                 m.reset_parameters(generator)
 
     def forward(self, x):
-        x = torch.relu(self.bn1(self.conv1(x.to(self.dtype))))
+        x = torch.relu(self.bn1(self.conv1(x.to(self.dtype))).to(self.dtype))
         x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1).permute(0, 2, 3, 1)
         for stage in range(self.num_stages):
             x = getattr(self, f"layer{stage + 1}")(x)
@@ -338,4 +399,12 @@ class ResNet(nn.Module):
 
 
 ResNet18 = functools.partial(ResNet, stage_sizes=[2, 2, 2, 2], block_cls=BasicBlock)
+ResNet34 = functools.partial(ResNet, stage_sizes=[3, 4, 6, 3], block_cls=BasicBlock)
 ResNet50 = functools.partial(ResNet, stage_sizes=[3, 4, 6, 3], block_cls=Bottleneck)
+ResNet101 = functools.partial(ResNet, stage_sizes=[3, 4, 23, 3], block_cls=Bottleneck)
+ResNet152 = functools.partial(ResNet, stage_sizes=[3, 8, 36, 3], block_cls=Bottleneck)
+# SimCLR's width multipliers (ResNet50-2x, -4x)
+ResNet50w2 = functools.partial(ResNet, stage_sizes=[3, 4, 6, 3], block_cls=Bottleneck,
+                               num_filters=128)
+ResNet50w4 = functools.partial(ResNet, stage_sizes=[3, 4, 6, 3], block_cls=Bottleneck,
+                               num_filters=256)

@@ -8,9 +8,11 @@ same draws. The geometric ops (random resized crop, horizontal flip, gaussian
 blur) are per-sample separable linear operators applied as two batched
 matmuls, ``out = W_y · img · W_xᵀ``: the JAX package records a gather
 formulation as a 500× regression. Colour jitter follows torchvision's
-float-tensor semantics with a per-sample random op order and one HSV pass.
-The val path resizes by ``jax.image.resize``'s linear kernel and crops the
-centre, also as two matmuls.
+float-tensor semantics with a per-sample random op order and one HSV pass
+(``jitter_order="torchvision"``), or in the fixed order brightness →
+contrast → saturation → hue with the hue as a rotation in the YIQ plane
+(``"fixed"``). The val path resizes by ``jax.image.resize``'s linear kernel
+and crops the centre, also as two matmuls.
 
 The body of both paths reads no host data, so a CUDA graph can capture it:
 its constant vectors are made once per device and type (``_constant``).
@@ -26,6 +28,9 @@ import torch
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 _GRAY_WEIGHTS = (0.299, 0.587, 0.114)  # ITU-R 601-2 luma, as PIL convert("L")
+# RGB ↔ YIQ, the fixed order's hue rotation (the luma row is _GRAY_WEIGHTS)
+_RGB2YIQ = ((0.299, 0.587, 0.114), (0.596, -0.274, -0.322), (0.211, -0.523, 0.312))
+_YIQ2RGB = ((1.0, 0.956, 0.621), (1.0, -0.272, -0.647), (1.0, -1.106, 1.703))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,11 +67,12 @@ class AugmentDraws:
     crop_w: torch.Tensor
     flip: torch.Tensor  # bool
     jitter: torch.Tensor  # bool — colour jitter applied
-    fb: torch.Tensor  # brightness / contrast / saturation blend factors
+    # brightness / contrast / saturation blend factors, 1 where jitter is off
+    fb: torch.Tensor
     fc: torch.Tensor
     fs: torch.Tensor
-    fh: torch.Tensor  # hue shift in turns
-    perm: torch.Tensor  # int64 per-sample op order of (b, c, s, hue)
+    fh: torch.Tensor  # hue shift in turns, 0 where jitter is off
+    perm: torch.Tensor  # int64 per-sample op order of (b, c, s, hue); unread in "fixed"
     gray: torch.Tensor  # bool
     blur: torch.Tensor  # bool
     sigma: torch.Tensor
@@ -277,6 +283,37 @@ def color_jitter_apply(img, perm, fb, fc, fs, fh, cfg: AugmentConfig):
     return blend_stages(img, lambda t: t > h_pos, range(1, 4))
 
 
+def _hue_rotate(img, shift):
+    """Rotate the chroma (I, Q) of each sample by ``shift`` [B] turns; the
+    luma is kept."""
+    theta = (2.0 * math.pi) * shift
+    cos, sin = torch.cos(theta)[:, None, None], torch.sin(theta)[:, None, None]
+    yiq = img @ _constant(_RGB2YIQ, img.dtype, img.device).T
+    y, i, q = yiq.unbind(dim=-1)
+    rotated = torch.stack([y, i * cos - q * sin, i * sin + q * cos], dim=-1)
+    return (rotated @ _constant(_YIQ2RGB, img.dtype, img.device).T).clamp(0.0, 1.0)
+
+
+def color_jitter_fixed(img, fb, fc, fs, fh, cfg: AugmentConfig):
+    """The jitter in the fixed order brightness → contrast → saturation → hue
+    (``jitter_order="fixed"``), each op a blend clip(f·img + (1−f)·other) and
+    the hue a YIQ rotation; a factor of 1 and a shift of 0 where jitter is off."""
+
+    def blend(img, other, factor):
+        f = factor[:, None, None, None]
+        return (img * f + other * (1.0 - f)).clamp(0.0, 1.0)
+
+    if cfg.brightness:
+        img = blend(img, torch.zeros_like(img), fb)
+    if cfg.contrast:
+        img = blend(img, _rgb_to_grayscale(img).mean(dim=(1, 2, 3), keepdim=True), fc)
+    if cfg.saturation:
+        img = blend(img, _rgb_to_grayscale(img), fs)
+    if cfg.hue:
+        img = _hue_rotate(img, fh)
+    return img
+
+
 def _finalize(out, cfg: AugmentConfig):
     if cfg.normalize:
         mean = _constant(IMAGENET_MEAN, out.dtype, out.device)
@@ -292,8 +329,8 @@ def _finalize(out, cfg: AugmentConfig):
 def draw_augment_params(generator: torch.Generator, batch: int, in_h: int, in_w: int,
                         cfg: AugmentConfig) -> AugmentDraws:
     """Every random number of one train-mode call, from ``generator`` on its device."""
-    if cfg.jitter_order != "torchvision":
-        raise ValueError(f"jitter_order={cfg.jitter_order!r} is not ported")
+    if cfg.jitter_order not in ("torchvision", "fixed"):
+        raise ValueError(f"jitter_order={cfg.jitter_order!r}; choices: torchvision, fixed")
     dev = generator.device
 
     def uniform(lo=0.0, hi=1.0, shape=(batch,)):
@@ -304,7 +341,9 @@ def draw_augment_params(generator: torch.Generator, batch: int, in_h: int, in_w:
     jitter = uniform() < cfg.color_jitter_prob
 
     def factor(strength):
-        return torch.where(jitter, uniform(max(0.0, 1.0 - strength), 1.0 + strength), 1.0)
+        # torchvision clips the factor's range at 0; the fixed order does not
+        lo = 1.0 - strength if cfg.jitter_order == "fixed" else max(0.0, 1.0 - strength)
+        return torch.where(jitter, uniform(lo, 1.0 + strength), 1.0)
 
     ones = torch.ones(batch, device=dev)
     fb = factor(cfg.brightness) if cfg.brightness else ones
@@ -332,10 +371,13 @@ def apply_augment(images: torch.Tensor, draws: AugmentDraws, cfg: AugmentConfig,
     w_x = _bilinear_matrix(draws.crop_j, draws.crop_w, in_w, out_w, flip=draws.flip)
     out = _apply_separable(imgs, w_y, w_x).clamp(0.0, 1.0)
     if cfg.brightness or cfg.contrast or cfg.saturation or cfg.hue:
-        jittered = color_jitter_apply(out, draws.perm, draws.fb, draws.fc, draws.fs,
-                                      draws.fh, cfg)
-        # exact identity where jitter is off (the HSV round trip is not)
-        out = torch.where(draws.jitter[:, None, None, None], jittered, out)
+        if cfg.jitter_order == "fixed":
+            out = color_jitter_fixed(out, draws.fb, draws.fc, draws.fs, draws.fh, cfg)
+        else:
+            jittered = color_jitter_apply(out, draws.perm, draws.fb, draws.fc, draws.fs,
+                                          draws.fh, cfg)
+            # exact identity where jitter is off (the HSV round trip is not)
+            out = torch.where(draws.jitter[:, None, None, None], jittered, out)
     if cfg.grayscale_prob > 0:
         out = torch.where(draws.gray[:, None, None, None],
                           _rgb_to_grayscale(out).expand_as(out), out)

@@ -4,7 +4,9 @@ prefill, embedding and panels.
 
     uint8 frames → augmentation on the device → key forward (no grad,
     shuffled BN) → query forward → multi-pair InfoNCE against the batch keys
-    and the queue → backward → SGD or LARS → EMA of the key encoder → enqueue
+    and the queue [+ self-batch InfoNCE, + ImageNet CE of the decoders on
+    detached features, + the jigsaw alignment term] → backward → SGD or LARS
+    → EMA of the key encoder → enqueue
 
 in the JAX order: the loss reads the queue as it was before this step's
 insert, the EMA follows the optimizer step, and the enqueue comes last. The
@@ -14,12 +16,17 @@ forward, not with the EMA.
 The JAX step is a pure function of an immutable state. Here the state holds
 ``nn.Module``s, a ``VinceOptimizer`` and the queue, and a step updates them in
 place and returns the same object. A step is split in two: the draws (every
-random number of the step: the augmentation's and the shuffled-BN
-permutation, drawn eagerly from generators seeded by the run's seed and the
-step) and the body (everything from the augmentation's apply to the enqueue),
-which reads only tensors. ``make_train_step_fn`` runs both eagerly;
+random number of the step: the augmentation's, the shuffled-BN permutation
+and the jigsaw permutations, drawn eagerly from generators seeded by the
+run's seed and the step) and the body (everything from the augmentation's
+apply to the enqueue), which reads only tensors. ``make_train_step_fn`` runs both eagerly;
 ``make_train_step``, the counterpart of ``jax.jit(..., donate_argnums=(0,))``,
 captures the body in a CUDA graph and replays it.
+
+With ``jigsaw_side`` a step runs PIRL's jigsaw on the query encoder, the key
+encoder or both: that side's images are cut into 3×3 patches whose features
+the jigsaw head combines in a random order, in place of the projection. The
+solver alternates a query-side and a key-side step on one state.
 """
 
 import copy
@@ -27,10 +34,12 @@ import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from vince_tpu_torch.device import full_f32_products, resolve_device
 from vince_tpu_torch.models.resnet import unrecorded_batch_stats
-from vince_tpu_torch.models.vince_model import VinceEncoder, split_vince_params
+from vince_tpu_torch.models.vince_model import (
+    VinceEncoder, jigsaw_patchify, random_jigsaw_perms, split_vince_params)
 from vince_tpu_torch.ops.augment import (
     AugmentConfig, AugmentDraws, _finalize, apply_augment, augment_batch, draw_augment_params)
 from vince_tpu_torch.ops.ema import ema_update
@@ -49,14 +58,15 @@ class SourceSpec:
     num_frames: int = 1
     transform: str = "StandardVideoTransform"
     shared_transform: bool = False  # same augmentation for query and key
+    use_imagenet_ce: bool = False  # supervised decoders on this source; its batch has labels
     source_id: int = 0  # tag stored in the queue
 
 
 @dataclasses.dataclass(frozen=True)
 class VinceConfig:
-    """Static configuration of the pretraining step. The heads and the step
-    branches that use them (attention pool, jigsaw, self-batch, ImageNet CE)
-    are not ported, so the config has no field that asks for them."""
+    """Static configuration of the pretraining step on one GPU: the JAX
+    config's fields less those of the mesh (axis sizes, the shuffle mode,
+    sync-BN) and ``remat``, which is not ported."""
 
     sources: Tuple[SourceSpec, ...]
     backbone: str = "ResNet18"
@@ -64,8 +74,12 @@ class VinceConfig:
     image_size: int = 224
     queue_size: int = 65536
     temperature: float = 0.07
+    self_temperature: float = 0.07  # the self-batch term's
     momentum: float = 0.999
     inter_batch: bool = True
+    self_batch: bool = False  # InfoNCE of each source's queries against themselves
+    use_attention: bool = False  # attention pool in place of the average
+    jigsaw: bool = False  # the jigsaw head (the steps' jigsaw_side chooses where it runs)
     shuffle_bn: bool = True
     compute_dtype: torch.dtype = torch.float32
     use_fused_infonce: bool = False  # K1 for the queue sweep
@@ -73,7 +87,14 @@ class VinceConfig:
     fold_kernel: bool = False  # K2 at the supported bottleneck sites (ResNet)
     dw_kind: str = "conv"  # EfficientNet depthwise emission: conv, tap or kernel (K4)
     se_kind: str = "mul"  # EfficientNet squeeze-excite gate: mul or fold
+    norm_kind: str = "batchnorm"  # ResNet norm: batchnorm or groupnorm
+    stem_kind: str = "s2d"  # ResNet stem arithmetic: s2d (compute dtype) or conv7 (f32)
     jitter_order: str = "torchvision"
+    # a diagnostic: the jigsaw path with the identity permutation
+    jigsaw_identity_perms: bool = False
+    # weight of PIRL's cross-head alignment term on a query- or key-side jigsaw
+    # step (a second query forward through the other head); 0 is the reference
+    jigsaw_align_weight: float = 0.0
 
     @property
     def total_batch(self) -> int:
@@ -185,9 +206,47 @@ class VinceState:
 
 
 def build_encoder(cfg: VinceConfig) -> VinceEncoder:
-    return VinceEncoder(cfg.backbone, cfg.embed_size, dtype=cfg.compute_dtype,
-                        bn_fold=cfg.bn_fold, fold_kernel=cfg.fold_kernel,
-                        dw_kind=cfg.dw_kind, se_kind=cfg.se_kind)
+    return VinceEncoder(cfg.backbone, cfg.embed_size, use_attention=cfg.use_attention,
+                        jigsaw=cfg.jigsaw,
+                        use_imagenet_decoders=any(s.use_imagenet_ce for s in cfg.sources),
+                        dtype=cfg.compute_dtype, norm_kind=cfg.norm_kind,
+                        stem_kind=cfg.stem_kind, bn_fold=cfg.bn_fold,
+                        fold_kernel=cfg.fold_kernel, dw_kind=cfg.dw_kind, se_kind=cfg.se_kind)
+
+
+JIGSAW_SIDES = (None, "query", "key", "both")
+
+
+def _jigsaw_roles(cfg: VinceConfig, jigsaw_side: Optional[str]) -> Tuple[str, ...]:
+    """The forwards of a train step that take the jigsaw path, in the order
+    the step runs them: the key's, the query's, and the alignment pass's (which
+    runs the head the query pass did not)."""
+    roles = []
+    if jigsaw_side in ("key", "both"):
+        roles.append("key")
+    if jigsaw_side in ("query", "both"):
+        roles.append("query")
+    if cfg.jigsaw_align_weight > 0 and jigsaw_side == "key":
+        roles.append("align")
+    return tuple(roles)
+
+
+def _check_jigsaw_side(cfg: VinceConfig, jigsaw_side: Optional[str]) -> None:
+    if jigsaw_side not in JIGSAW_SIDES:
+        raise ValueError(f"jigsaw_side={jigsaw_side!r}; choices: {JIGSAW_SIDES}")
+    if jigsaw_side is not None and not cfg.jigsaw:
+        raise ValueError(f"jigsaw_side={jigsaw_side!r} needs VinceConfig.jigsaw")
+    if jigsaw_side in ("query", "both") and any(s.use_imagenet_ce for s in cfg.sources):
+        # the decoders then read the jigsaw head's embed_size-wide output, and
+        # their weights are output_channels wide: the JAX step fails at trace
+        # time on the mismatch of shapes, so this one refuses the build
+        with torch.device("meta"):
+            channels = build_encoder(cfg).output_channels
+        if channels != cfg.embed_size:
+            raise ValueError(
+                f"a {jigsaw_side}-side jigsaw step feeds the ImageNet decoders the jigsaw "
+                f"head's {cfg.embed_size}-wide output, and they take the backbone's "
+                f"{channels} channels")
 
 
 def init_vince_state(seed: int, cfg: VinceConfig, optimizer: OptimizerSpec,
@@ -240,14 +299,17 @@ def _transform(cfg: VinceConfig, src: SourceSpec) -> AugmentConfig:
 @dataclasses.dataclass
 class StepDraws:
     """The random numbers of one step: per source the query's and the key's
-    augmentation draws (None for the val path), and the shuffled-BN
-    permutation (None without shuffled BN)."""
+    augmentation draws (None for the val path), the shuffled-BN permutation
+    (None without shuffled BN), and the jigsaw permutations [B, 9] of each
+    forward that takes the jigsaw path, by role (``_jigsaw_roles``)."""
 
     augment: List[Tuple[Optional[AugmentDraws], Optional[AugmentDraws]]]
     perm: Optional[torch.Tensor]
+    jigsaw: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
 
-def _draw_step(cfg: VinceConfig, batch, seed: int, step: int, mode: str = "train") -> StepDraws:
+def _draw_step(cfg: VinceConfig, batch, seed: int, step: int, mode: str = "train",
+               jigsaw_side: Optional[str] = None) -> StepDraws:
     """Draw a step's random numbers on the batch's device. ``mode="val"``
     mirrors the reference's val loaders: queries take the val path, which
     draws nothing; keys of single-frame sources stay train-augmented, keys of
@@ -267,7 +329,12 @@ def _draw_step(cfg: VinceConfig, batch, seed: int, step: int, mode: str = "train
         augment.append((q, k))
     perm = (make_shuffle_perm(_generator(dev, seed, step, 1), cfg.total_batch)
             if cfg.shuffle_bn else None)
-    return StepDraws(augment, perm)
+    jigsaw, gen = {}, _generator(dev, seed, step, 3)
+    for role in _jigsaw_roles(cfg, jigsaw_side):
+        jigsaw[role] = (torch.arange(9, device=dev).repeat(cfg.total_batch, 1)
+                        if cfg.jigsaw_identity_perms
+                        else random_jigsaw_perms(gen, cfg.total_batch))
+    return StepDraws(augment, perm, jigsaw)
 
 
 def _augment(images, draws: Optional[AugmentDraws], tcfg: AugmentConfig, dtype):
@@ -287,12 +354,20 @@ def _augment_sources(cfg: VinceConfig, batch, draws):
     return torch.cat(q_imgs, 0), torch.cat(k_imgs, 0)
 
 
+def _encode(model: VinceEncoder, images, jigsaw_perm=None):
+    """The encoder's forward; with ``jigsaw_perm`` the jigsaw path over the
+    images' 3×3 patches."""
+    if jigsaw_perm is None:
+        return model(images)
+    return model(jigsaw_patchify(images), jigsaw=True, jigsaw_perm=jigsaw_perm)
+
+
 @torch.no_grad()
-def _key_embeddings(cfg: VinceConfig, state: VinceState, k_all, perm):
+def _key_embeddings(cfg: VinceConfig, state: VinceState, k_all, perm, jigsaw_perm=None):
     """The key encoder's f32 embeddings of each source, through shuffled BN
-    when ``perm`` is given."""
+    when ``perm`` is given (the jigsaw patches are cut after the shuffle)."""
     k_in = k_all if perm is None else shuffle(k_all, perm)
-    k_emb = state.key_model(k_in)["embeddings"].float()
+    k_emb = _encode(state.key_model, k_in, jigsaw_perm)["embeddings"].float()
     if perm is not None:
         k_emb = unshuffle(k_emb, perm)
     return [k_emb[a:b] for a, b in _source_offsets(cfg)]
@@ -301,30 +376,74 @@ def _key_embeddings(cfg: VinceConfig, state: VinceState, k_all, perm):
 METRIC_KEYS = ("nce_accuracy", "softmax_weight", "cosine_sim", "cosine_sim_neg_max")
 
 
-def _source_losses(cfg: VinceConfig, q_emb, k_sources, queue):
-    """Per-source InfoNCE against the batch keys and the queue: the mean of
-    the losses, and the mean of each metric over the sources."""
-    losses, metrics = [], {}
-    for si, ((a, b), src) in enumerate(zip(_source_offsets(cfg), cfg.sources)):
+def _objective(cfg: VinceConfig, model: VinceEncoder, out, k_sources, queue, batch,
+               align_emb=None):
+    """The loss terms of JAX's ``loss_fn`` from the query forward ``out``:
+    per source the InfoNCE against its keys and the queue, the self-batch
+    InfoNCE, and the decoders' CE on the detached features of a CE source;
+    the alignment term of ``align_emb`` (the other head's embeddings) against
+    the queries. Each term and each metric is the mean over the sources that
+    have it; ``loss/total_loss`` is the sum of the terms."""
+    q_emb = out["embeddings"].float()
+    features = out["extracted_features"]
+    terms, metrics = {}, {}
+
+    def add(into, key, value):
+        into.setdefault(key, []).append(value)
+
+    offsets = _source_offsets(cfg)
+    for si, ((a, b), src) in enumerate(zip(offsets, cfg.sources)):
         mask, neg_mask = _source_masks(cfg, src, q_emb.device)
         res = sharded_multi_pair_infonce(
             q_emb[a:b], k_sources[si], mask, cfg.temperature,
             queue_shard=queue, batch_neg_mask=neg_mask,
             use_fused_queue_kernel=cfg.use_fused_infonce)
-        losses.append(res["dist"])
+        add(terms, "nce_loss", res["dist"])
         for mk in METRIC_KEYS:
-            metrics.setdefault(mk, []).append(res[mk])
-    return torch.stack(losses).mean(), {k: torch.stack(v).mean() for k, v in metrics.items()}
+            add(metrics, mk, res[mk])
+        if cfg.self_batch:
+            # q·qᵀ with the same positives (its diagonal included), no queue
+            res = sharded_multi_pair_infonce(q_emb[a:b], q_emb[a:b], mask, cfg.self_temperature)
+            add(terms, "nce_loss_self", res["dist"])
+            add(metrics, "nce_accuracy_self", res["nce_accuracy"])
+        if src.use_imagenet_ce:
+            labels = batch[si]["labels"]
+            for di, logits in enumerate(model.imagenet_logits(features[a:b].detach())):
+                logits = logits.float()
+                add(terms, f"imagenet_loss_{di}", F.cross_entropy(logits, labels.long()))
+                add(metrics, f"imagenet_accuracy_{di}",
+                    (logits.argmax(dim=-1) == labels).float().mean())
+    if align_emb is not None:
+        for (a, b), src in zip(offsets, cfg.sources):
+            mask, _ = _source_masks(cfg, src, q_emb.device)
+            res = sharded_multi_pair_infonce(align_emb[a:b], q_emb[a:b], mask, cfg.temperature)
+            add(terms, "nce_loss_align", cfg.jigsaw_align_weight * res["dist"])
+            add(metrics, "nce_accuracy_align", res["nce_accuracy"])
+    losses = {k: torch.stack(v).mean() for k, v in terms.items()}
+    result = {k: torch.stack(v).mean() for k, v in metrics.items()}
+    result.update({f"loss/{k}": v for k, v in losses.items()})
+    result["loss/total_loss"] = sum(losses.values())
+    return result
 
 
-def _train_body(cfg: VinceConfig, state: VinceState, batch, draws: StepDraws):
+def _train_body(cfg: VinceConfig, state: VinceState, batch, draws: StepDraws,
+                jigsaw_side: Optional[str] = None):
     """One step from the augmentation's apply to the enqueue; the learning
     rate is already in ``state.optimizer``."""
     q_all, k_all = _augment_sources(cfg, batch, draws.augment)
-    k_sources = _key_embeddings(cfg, state, k_all, draws.perm)
+    k_sources = _key_embeddings(cfg, state, k_all, draws.perm, draws.jigsaw.get("key"))
+    out = _encode(state.model, q_all, draws.jigsaw.get("query"))
+    align_emb = None
+    if cfg.jigsaw_align_weight > 0 and jigsaw_side in ("query", "key"):
+        # the same queries through the head the query pass did not run, in a
+        # second train-mode forward whose batch statistics are dropped
+        with unrecorded_batch_stats(state.model):
+            align_emb = _encode(state.model, q_all,
+                                draws.jigsaw.get("align"))["embeddings"].float()
     # the loss reads the queue before this step's enqueue
-    total, metrics = _source_losses(cfg, state.model(q_all)["embeddings"].float(), k_sources,
-                                    state.queue.vectors)
+    metrics = _objective(cfg, state.model, out, k_sources, state.queue.vectors, batch,
+                         align_emb)
+    total = metrics["loss/total_loss"]
     opt = state.optimizer
     opt.zero_grad()
     total.backward()
@@ -339,22 +458,23 @@ def _train_body(cfg: VinceConfig, state: VinceState, batch, draws: StepDraws):
     for si, src in enumerate(cfg.sources):
         enqueue(state.queue, k_sources[si], src.source_id)
 
-    out = {k: v.detach() for k, v in metrics.items()}
-    out["loss/nce_loss"] = out["loss/total_loss"] = total.detach()
-    return out
+    return {k: v.detach() for k, v in metrics.items()}
 
 
-def make_train_step_fn(cfg: VinceConfig, optimizer: OptimizerSpec):
+def make_train_step_fn(cfg: VinceConfig, optimizer: OptimizerSpec,
+                       jigsaw_side: Optional[str] = None):
     """Build the eager train step ``(state, batch, seed) → (state, metrics)``.
     ``batch`` is a tuple of per-source dicts holding uint8 ``data`` and
-    ``queue_data`` [B_s, H, W, 3] on the state's device; the metrics are
-    0-dim tensors on that device."""
+    ``queue_data`` [B_s, H, W, 3] on the state's device, and ``labels`` [B_s]
+    for a CE source; the metrics are 0-dim tensors on that device, under the
+    JAX step's names. ``jigsaw_side`` ∈ {None, "query", "key", "both"}."""
+    _check_jigsaw_side(cfg, jigsaw_side)
     full_f32_products()
 
     def step(state: VinceState, batch, seed: int = 0):
-        draws = _draw_step(cfg, batch, seed, state.step)
+        draws = _draw_step(cfg, batch, seed, state.step, jigsaw_side=jigsaw_side)
         state.optimizer.set_lr(optimizer.lr(state.step))
-        metrics = _train_body(cfg, state, batch, draws)
+        metrics = _train_body(cfg, state, batch, draws, jigsaw_side)
         state.step += 1
         return state, metrics
 
@@ -392,8 +512,9 @@ def _copy_leaves(dst, src) -> None:
 class _CapturedTrainStep:
     """The train step as one CUDA graph (see ``make_train_step``)."""
 
-    def __init__(self, cfg: VinceConfig, optimizer: OptimizerSpec):
-        self.cfg, self.optimizer = cfg, optimizer
+    def __init__(self, cfg: VinceConfig, optimizer: OptimizerSpec,
+                 jigsaw_side: Optional[str] = None):
+        self.cfg, self.optimizer, self.jigsaw_side = cfg, optimizer, jigsaw_side
         self.state: Optional[VinceState] = None  # the state the graph is bound to
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.static_batch = self.static_draws = self.static_metrics = None
@@ -407,7 +528,7 @@ class _CapturedTrainStep:
         elif state is not self.state:
             raise ValueError("this captured step is bound to another state; make a step for "
                              "each state")
-        draws = _draw_step(self.cfg, batch, seed, state.step)
+        draws = _draw_step(self.cfg, batch, seed, state.step, jigsaw_side=self.jigsaw_side)
         state.optimizer.set_lr(self.optimizer.lr(state.step))
         if self.calls < WARMUP_STEPS:
             metrics = self._warm_up(state, batch, draws)
@@ -432,7 +553,7 @@ class _CapturedTrainStep:
         side = torch.cuda.Stream(state.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            metrics = _train_body(self.cfg, state, batch, draws)
+            metrics = _train_body(self.cfg, state, batch, draws, self.jigsaw_side)
         main.wait_stream(side)
         return metrics
 
@@ -440,7 +561,7 @@ class _CapturedTrainStep:
         static_batch = tuple({k: v.clone() for k, v in src.items()} for src in batch)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            metrics = _train_body(self.cfg, state, static_batch, draws)
+            metrics = _train_body(self.cfg, state, static_batch, draws, self.jigsaw_side)
         # kept only once the capture succeeded; a capture runs nothing, so
         # this call's step is the first replay
         self.graph, self.static_batch, self.static_draws = graph, static_batch, draws
@@ -449,7 +570,8 @@ class _CapturedTrainStep:
         return metrics
 
 
-def make_train_step(cfg: VinceConfig, optimizer: OptimizerSpec):
+def make_train_step(cfg: VinceConfig, optimizer: OptimizerSpec,
+                    jigsaw_side: Optional[str] = None):
     """The captured train step ``(state, batch, seed) → (state, metrics)``, the
     counterpart of ``jax.jit(make_train_step_fn(...), donate_argnums=(0,))``,
     with the meaning of ``make_train_step_fn``'s step.
@@ -464,17 +586,24 @@ def make_train_step(cfg: VinceConfig, optimizer: OptimizerSpec):
     the capture fails, the error surfaces: there is no eager fallback. The
     kernels' launch counters move while the graph is captured and not when it
     is replayed. The metrics are copies of the graph's outputs.
+
+    Steps of other ``jigsaw_side``s may share one state, as the solver's
+    alternation of a query-side and a key-side step does: each captures its
+    own graph (in a memory pool of its own) after its own warm-up calls, and
+    every replay advances the queue's host count, whichever graph ran.
     """
+    _check_jigsaw_side(cfg, jigsaw_side)
     full_f32_products()
-    return _CapturedTrainStep(cfg, optimizer)
+    return _CapturedTrainStep(cfg, optimizer, jigsaw_side)
 
 
 def make_eval_step(cfg: VinceConfig):
     """The validation step ``(state, batch, seed) → metrics``: the training
-    forward and loss with the val-mode augmentation and train-mode BatchNorm
-    that records nothing (the JAX step runs train-mode BN, as the reference's
-    validation does, and drops the statistics); no gradient, and no change to
-    the state."""
+    forward and loss terms (InfoNCE, self-batch, ImageNet CE; never jigsaw)
+    with the val-mode augmentation and train-mode BatchNorm that records
+    nothing (the JAX step runs train-mode BN, as the reference's validation
+    does, and drops the statistics); no gradient, and no change to the state.
+    The metrics are JAX's: each loss term, no total."""
     full_f32_products()
 
     @torch.no_grad()
@@ -483,9 +612,9 @@ def make_eval_step(cfg: VinceConfig):
         q_all, k_all = _augment_sources(cfg, batch, draws.augment)
         with unrecorded_batch_stats(state.model, state.key_model):
             k_sources = _key_embeddings(cfg, state, k_all, draws.perm)
-            q_emb = state.model(q_all)["embeddings"].float()
-        loss, metrics = _source_losses(cfg, q_emb, k_sources, state.queue.vectors)
-        metrics["loss/nce_loss"] = loss
+            out = state.model(q_all)
+        metrics = _objective(cfg, state.model, out, k_sources, state.queue.vectors, batch)
+        del metrics["loss/total_loss"]
         return metrics
 
     return eval_step
@@ -496,9 +625,9 @@ def make_key_prefill_fn(cfg: VinceConfig, src_idx: int):
     f32 embeddings: train-mode key augmentation of the source's
     ``queue_data`` and a train-mode forward of the key encoder whose
     statistics are dropped, the distribution of the keys a train step
-    enqueues. Every parameter of the port's encoder is EMA-tracked, so the
-    key encoder is JAX's merge of the key's tracked parameters and the
-    query's rest."""
+    enqueues. The key encoder stands for JAX's merge of the key's tracked
+    parameters and the query's rest: its untracked parameters (the ImageNet
+    decoders) stay as they were made, and no key path reads them."""
     tcfg = _transform(cfg, cfg.sources[src_idx])
     full_f32_products()
 
@@ -539,12 +668,21 @@ def make_embed_fn(cfg: VinceConfig, use_key_encoder: bool = False):
 
 def make_panel_fn(cfg: VinceConfig):
     """The forward for the training loop's image panels, ``(state, images) →
-    {"embeddings"}`` (the attention masks and the ImageNet logits of the JAX
-    panel need heads that are not ported)."""
+    dict`` in f32, eval-mode BN: ``embeddings``, the pool's
+    ``attention_masks`` [B, H', W', 1] with ``use_attention``, and
+    ``imagenet_logits_0``/``_1`` when a source trains the decoders."""
+    has_decoders = any(s.use_imagenet_ce for s in cfg.sources)
     full_f32_products()
 
     @torch.no_grad()
     def panel(state: VinceState, images) -> Dict[str, torch.Tensor]:
-        return {"embeddings": _eval_forward(cfg, state.model, images)["embeddings"].float()}
+        out = _eval_forward(cfg, state.model, images)
+        res = {"embeddings": out["embeddings"].float()}
+        if "attention_masks" in out:
+            res["attention_masks"] = out["attention_masks"].float()
+        if has_decoders:
+            for di, logits in enumerate(state.model.imagenet_logits(out["extracted_features"])):
+                res[f"imagenet_logits_{di}"] = logits.float()
+        return res
 
     return panel

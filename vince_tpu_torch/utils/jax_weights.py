@@ -18,6 +18,20 @@ _BLOCK_MODULES = {"downsample_conv": "downsample.0", "downsample_bn": "downsampl
 # EfficientNet: flax module names -> efficientnet_pytorch's
 _EFFNET_TOP = {"stem_conv": "_conv_stem", "stem_bn": "_bn0",
                "head_conv": "_conv_head", "head_bn": "_bn1"}
+# the heads beside the backbone, under their flax names (AveragePool has no parameters)
+_HEADS = ("pool", "embedding", "jigsaw", "imagenet_decoder_0", "imagenet_decoder_1")
+# the port's head names → the reference VinceModel's (``torch_export``'s naming)
+_REFERENCE_HEADS = (
+    (r"^pool\.attn_logits\.", "average_layers.attention."),
+    (r"^embedding\.fc1\.", "embedding.0."),
+    (r"^embedding\.fc2\.", "embedding.2."),
+    (r"^jigsaw\.jigsaw_linear\.", "jigsaw_linear."),
+    (r"^jigsaw\.fc1\.", "jigsaw_embedding.0."),
+    (r"^jigsaw\.fc2\.", "jigsaw_embedding.2."),
+    (r"^imagenet_decoder_0\.fc_out\.", "imagenet_decoders.0."),
+    (r"^imagenet_decoder_1\.fc0\.", "imagenet_decoders.1.0."),
+    (r"^imagenet_decoder_1\.fc_out\.", "imagenet_decoders.1.2."),
+)
 _MBCONV_MODULES = {"expand_conv": "_expand_conv", "expand_bn": "_bn0",
                    "depthwise_conv": "_depthwise_conv", "depthwise_bn": "_bn1",
                    "project_conv": "_project_conv", "project_bn": "_bn2"}
@@ -40,8 +54,8 @@ def _emit(out: Dict, name: str, leafs: Dict, stats) -> None:
 
 
 def flax_to_state_dict(params: Dict, batch_stats: Dict) -> Dict[str, np.ndarray]:
-    """``VinceEncoder`` flax trees (ResNet or EfficientNet backbone) → the
-    port's ``state_dict`` names and layouts."""
+    """``VinceEncoder`` flax trees (ResNet or EfficientNet backbone, and the
+    heads it has) → the port's ``state_dict`` names and layouts."""
     out: Dict[str, np.ndarray] = {}
     stats = batch_stats.get("backbone", {})
     for name, p in params["backbone"].items():
@@ -64,8 +78,9 @@ def flax_to_state_dict(params: Dict, batch_stats: Dict) -> Dict[str, np.ndarray]
             _emit(out, f"backbone.{_EFFNET_TOP[name]}", p, stats.get(name))
         else:
             _emit(out, f"backbone.{name}", p, stats.get(name))
-    for name, leafs in params.get("embedding", {}).items():
-        _emit(out, f"embedding.{name}", leafs, None)
+    for head in _HEADS:
+        for name, leafs in params.get(head, {}).items():
+            _emit(out, f"{head}.{name}", leafs, None)
     return out
 
 
@@ -73,8 +88,9 @@ def to_reference_name(name: str) -> str:
     """The port's parameter name → the reference ``VinceModel`` state-dict name
     (the naming of ``export_vince_state_dict`` in ``vince_tpu/utils/torch_export.py``)."""
     name = re.sub(r"^backbone\.", "feature_extractor.module.model.", name)
-    return re.sub(r"^embedding\.fc([12])\.",
-                  lambda m: f"embedding.{0 if m[1] == '1' else 2}.", name)
+    for pattern, ref in _REFERENCE_HEADS:
+        name = re.sub(pattern, ref, name)
+    return name
 
 
 def _tensors(arrays: Dict[str, np.ndarray], like: torch.nn.Module) -> Dict[str, torch.Tensor]:
@@ -109,7 +125,9 @@ def load_jax_state(state, jax_state) -> None:
     """Load a JAX ``VinceState`` with numpy leaves into the port's state: query
     and key weights and statistics, the queue with its pointers, the step and
     the momentum traces of its SGD or LARS (the port's optimizer keeps optax's
-    trace of its kind). Tensors are written in place, so a captured step bound
+    trace of its kind). The key encoder takes its tracked parameters from
+    ``key_params`` and the rest (the ImageNet decoders, which no key path
+    reads) from ``params``, as the JAX prefill merges them. Tensors are written in place, so a captured step bound
     to ``state`` replays on the loaded values."""
     load_jax_variables(state.model, jax_state.params, jax_state.batch_stats)
     key_params = dict(jax_state.params)
