@@ -41,14 +41,26 @@ Phases:
      and against the plain versions; the captured steps against the eager
      ones under cuDNN deterministic, the jigsaw's query-side and key-side
      graphs on one state alternated by a seeded coin; 5 timed replays of
-     each graph; the eval step and the panel once each.
+     each graph; the eval step and the panel once each;
+  9. the training CLI: ``vince_tpu_torch.solver_runner.main`` in this process
+     (``CLI_ARGV``: the ResNet50 step of phases 3-5 fed by the synthetic
+     texture videos) for one epoch of 24 iterations, its val pass and saves,
+     with each call's launches counted and the solver's own time meters per
+     iteration; the restore of its step-24 checkpoint held bit-identical to
+     the files; the resumed run to step 48; 16 iterations with the loader's
+     workers in processes; 8 iterations of an EfficientNet-B0 through the
+     parser and the solver (K4); the loader alone, in threads and in
+     processes.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
 """
 
 import argparse
+import contextlib
 import copy
+import gc
+import io
 import json
 import math
 import os
@@ -1394,6 +1406,366 @@ def run_heads(dev, profile_path=None):
     return paths, times
 
 
+# phase 9: the training CLI at full width, ``solver_runner.main`` in this
+# process: the ResNet50 step of phases 3-5 fed by the synthetic texture videos
+# (32 videos x 4 frames of 256x256 canvases a batch, 256 videos a split)
+CLI_ARGV = ["--solver", "VinceSolver", "--dataset", "SyntheticTextureVideoDataset",
+            "--use-videos", "--inter-batch-comparison", "--num-frames", "4",
+            "--batch-size", "128", "--input-width", "224", "--input-height", "224",
+            "--vince-queue-size", "65536", "--vince-embedding-size", "128",
+            "--compute-dtype", "bfloat16", "--use-fused-infonce", "--fold-kernel",
+            "--backbone", "ResNet50", "--base-lr", "0.03", "--iterations-per-epoch", "24",
+            "--save-frequency", "12", "--synthetic-num-videos", "256"]
+CLI_METERS = ("data_cache_time", "step_time", "metrics_time", "log_save_time", "total_time")
+# beside the meters: the part of step_time until the step returns to the host
+LAPS = CLI_METERS + ("step host",)
+# launches of each solver call: a train iteration eagerly or at the capture
+# (none at a replay), a prefill batch, a val batch
+CLI_COUNTS = {
+    "ResNet50": {"step": TRAIN_PHASES["ResNet50"]["per_step"],
+                 "prefill": EVAL_COUNTS["ResNet50"]["prefill"],
+                 "val batch": EVAL_COUNTS["ResNet50"]["eval"]},
+    "EfficientNetB0": {"step": TRAIN_PHASES["EfficientNetB0"]["per_step"],
+                       "prefill": EVAL_COUNTS["EfficientNetB0"]["prefill"],
+                       "val batch": EVAL_COUNTS["EfficientNetB0"]["eval"]},
+}
+
+
+class CliRecord:
+    """While active, wraps ``VinceSolver.run_train_iteration``, ``run_val`` and
+    ``fill_queue_repeat``: each call's launches and plain calls, and after an
+    iteration its meters' laps and its loss, after a val pass its batches
+    and seconds."""
+
+    WRAPPED = ("run_train_iteration", "run_val", "fill_queue_repeat", "select_step")
+
+    def __enter__(self):
+        from vince_tpu_torch.solvers.vince_solver import VinceSolver
+
+        self.cls, self.calls, self.host_s = VinceSolver, [], []
+        self.originals = {name: getattr(VinceSolver, name) for name in self.WRAPPED}
+        for name, orig in self.originals.items():
+            setattr(VinceSolver, name, self._wrap(name, orig))
+        return self
+
+    def _timed_step(self, step):
+        """The step, with the host's time to return from it (the draws, the
+        copies into the graph's inputs, the replay's launch: the device may
+        still be running) kept per call."""
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = step(*args, **kwargs)
+            self.host_s.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def _wrap(self, name, orig):
+        if name == "select_step":
+            return lambda solver: self._timed_step(orig(solver))
+
+        def call(solver, *args, **kwargs):
+            from vince_tpu_torch.solvers.vince_step import WARMUP_STEPS
+
+            before, plain_before = read_counts()
+            if name == "run_train_iteration" and len(self.of(name)) == WARMUP_STEPS + 2:
+                out, syncs = with_sync_warnings(lambda: orig(solver, *args, **kwargs))
+            else:
+                out, syncs = orig(solver, *args, **kwargs), None
+            now, plain = read_counts()
+            entry = {"kind": name, "plain": plain - plain_before,
+                     "launches": {n: v - before.get(n, 0) for n, v in now.items()
+                                  if v != before.get(n, 0)}}
+            if name == "run_train_iteration":
+                entry["laps"] = {m: solver.time_meters[m].values[-1] for m in CLI_METERS}
+                entry["laps"]["step host"] = self.host_s[-1]
+                entry["syncs"] = syncs
+                entry["loss"] = out["loss/total_loss"]
+            elif name == "run_val":
+                entry["batches"], entry["seconds"] = solver.last_val_batches, solver.last_val_seconds
+            self.calls.append(entry)
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        for name, orig in self.originals.items():
+            setattr(self.cls, name, orig)
+
+    def of(self, kind):
+        return [c for c in self.calls if c["kind"] == kind]
+
+
+def with_sync_warnings(fn):
+    """``fn()`` with torch's warning on every operation that waits for the
+    device; (its result, the sites (file:line) and kinds of those waits)."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{os.path.relpath(w.filename)}:{w.lineno} ({str(w.message).split(',')[0]})"
+                 for w in caught if "synchroniz" in str(w.message)]
+
+
+class Tee(io.StringIO):
+    """stdout that is also kept, less the flags that ``parse_args`` prints
+    (from its "args" line to its line of dashes)."""
+
+    def __init__(self, out):
+        super().__init__()
+        self.out, self.line, self.in_args = out, "", False
+
+    def write(self, text):
+        self.line += text
+        *lines, self.line = self.line.split("\n")
+        for line in lines:
+            if line == "args":
+                self.in_args = True
+            elif not self.in_args:
+                self.out.write(line + "\n")
+            elif line.startswith("-----"):
+                self.in_args = False
+        return super().write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def check_cli_calls(what, rec, backbone, iterations, prefills):
+    """Each call's launches against ``CLI_COUNTS`` (the step's at the eager
+    warm-up calls and the capture, none at a replay), no plain call, finite
+    losses. Returns the launches summed by kernel."""
+    from vince_tpu_torch.solvers.vince_step import WARMUP_STEPS
+
+    counts = CLI_COUNTS[backbone]
+    its = rec.of("run_train_iteration")
+    if len(its) != iterations or len(rec.of("fill_queue_repeat")) != prefills:
+        fail(f"{what}: {len(its)} iterations and {len(rec.of('fill_queue_repeat'))} prefills, "
+             f"expected {iterations} and {prefills}")
+    for c in rec.calls:
+        if c["kind"] == "run_train_iteration":
+            i = its.index(c)
+            expected = counts["step"] if i <= WARMUP_STEPS else {}
+        elif c["kind"] == "fill_queue_repeat":
+            expected = counts["prefill"]
+        else:
+            expected = {k: v * c["batches"] for k, v in counts["val batch"].items()}
+        expected = {k: v for k, v in expected.items() if v}
+        if c["launches"] != expected or c["plain"]:
+            fail(f"{what}: {c['kind']} launched {c['launches']} with {c['plain']} plain calls, "
+                 f"expected {expected} and none")
+    losses = [c["loss"] for c in its]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{what}: non-finite losses {losses}")
+    log(f"  {what}: launches as expected ({counts['step']} per iteration at the "
+        f"{WARMUP_STEPS} eager calls and the capture, none at the {iterations - WARMUP_STEPS - 1} "
+        f"replays; {counts['prefill']} per prefill); losses {losses[0]:.4f} ... {losses[-1]:.4f}, "
+        f"all finite")
+    total = {}
+    for c in rec.calls:
+        for k, v in c["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def report_laps(what, rec, card):
+    """Median and range of each meter over the iterations after the capture."""
+    from vince_tpu_torch.solvers.vince_step import WARMUP_STEPS
+
+    after = rec.of("run_train_iteration")[WARMUP_STEPS + 1:]
+    out = {}
+    for m in LAPS:
+        ms = [c["laps"][m] * 1e3 for c in after]
+        out[m] = (float(np.median(ms)), min(ms), max(ms))
+        log(f"  {what} {m}: median {out[m][0]:.3f} ms (range {out[m][1]:.3f}-{out[m][2]:.3f}) "
+            f"over the {len(ms)} iterations after the capture")
+    out["frames_per_s"] = BATCH_SIZE / out["total_time"][0] * 1e3
+    log(f"  {what}: {out['frames_per_s']:.2f} frames/s (128 / median total_time); card {card}")
+    (probed,) = [c for c in after if c["syncs"] is not None]
+    out["syncs"] = probed["syncs"]
+    log(f"  {what}: the waits on the device in iteration {WARMUP_STEPS + 2} (a replay), by "
+        f"torch.cuda.set_sync_debug_mode: {probed['syncs']}")
+    return out
+
+
+def time_loader(processes, batches=16):
+    """The train loader alone at phase 9's shapes, with the CLI's default
+    workers: ms per batch of 32 videos x (4 + 4) frames over ``batches``
+    batches, after as many as its workers and its queue hold ready at the
+    start (the steady state of a long run)."""
+    import argparse as ap
+    import multiprocessing
+
+    from vince_tpu_torch.data.loader import PersistentDataLoader
+    from vince_tpu_torch.data.synthetic_dataset import SyntheticTextureVideoDataset
+
+    ds = SyntheticTextureVideoDataset(ap.Namespace(input_width=224, num_frames=4), "train",
+                                      num_videos=256, num_images_to_return=4)
+    workers = min(multiprocessing.cpu_count(), 16)
+    loader = PersistentDataLoader(batch_size=32, num_workers=workers, use_processes=processes)
+    loader.set_dataset(ds)
+    try:
+        for _ in range(workers + loader.prefetch + 1):
+            loader.get_batch(timeout=300)
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            loader.get_batch(timeout=300)
+        return (time.perf_counter() - t0) / batches * 1e3, workers
+    finally:
+        loader.shutdown()
+
+
+def time_item():
+    """One texture video of phase 9 (a scene and 8 jittered frames) on this
+    thread, ms: the median of 16."""
+    import argparse as ap
+
+    from vince_tpu_torch.data.synthetic_dataset import SyntheticTextureVideoDataset
+
+    ds = SyntheticTextureVideoDataset(ap.Namespace(input_width=224, num_frames=4), "train",
+                                      num_videos=256, num_images_to_return=4)
+    ms = []
+    for i in range(16):
+        t0 = time.perf_counter()
+        ds[i]
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
+
+
+def tree_equal(what, got, ref):
+    for k, v in ref.items():
+        if isinstance(v, dict):
+            tree_equal(f"{what}/{k}", got[k], v)
+        elif isinstance(v, torch.Tensor):
+            if not torch.equal(got[k].detach().cpu(), v):
+                fail(f"{what}/{k}: the restored tensor differs from the checkpoint's")
+        elif got[k] != v:
+            fail(f"{what}/{k}: restored {got[k]}, the checkpoint holds {v}")
+
+
+def free_cuda():
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def solver_iterations(what, argv, backbone, iterations, tmp):
+    """The parser and the solver as ``main`` builds them, ``iterations``
+    train iterations, no val, no save; the launches and the record."""
+    from vince_tpu_torch import arg_parser
+    from vince_tpu_torch.solvers.vince_solver import VinceSolver
+
+    argv = argv + ["--title", "cli", "--base-logdir", tmp, "--epochs", "1", "--no-save",
+                   "--no-restore"]
+    with CliRecord() as rec, contextlib.redirect_stdout(Tee(sys.stdout)):
+        solver = VinceSolver(arg_parser.parse_args(argv))
+        try:
+            solver.run_n_train_iterations(iterations)
+        finally:
+            solver.end()
+    del solver
+    free_cuda()
+    return check_cli_calls(what, rec, backbone, iterations, 1), rec
+
+
+def run_cli(dev, card):
+    """Phase 9: ``solver_runner.main`` for one epoch of 24 iterations and its
+    val pass; the restore of its step-24 checkpoint against the files; the
+    resumed run to 48; short runs through the parser and the solver with the
+    loader in processes and with an EfficientNet-B0; the loader alone.
+    Returns the launches of each path and the numbers."""
+    import shutil
+    import tempfile
+
+    from vince_tpu_torch import arg_parser, solver_runner
+    from vince_tpu_torch.solvers.vince_solver import VinceSolver
+    from vince_tpu_torch.utils.checkpoint import state_tree
+
+    paths, result = {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    argv = CLI_ARGV + ["--title", "cli", "--description", "resnet50", "--base-logdir", tmp]
+    try:
+        log(f"phase 9: python -m vince_tpu_torch.solver_runner {' '.join(CLI_ARGV)} "
+            f"--epochs 1 (logs and checkpoints in a temporary directory)")
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with CliRecord() as rec, contextlib.redirect_stdout(Tee(sys.stdout)):
+            solver = solver_runner.main(argv + ["--epochs", "1"])
+        result["wall_s"] = time.perf_counter() - t0
+        result["peak_gib"] = torch.cuda.max_memory_reserved() / 2**30
+        paths["CLI ResNet50, epoch 1"] = check_cli_calls("epoch 1", rec, "ResNet50", 24, 1)
+        result["laps"] = report_laps("epoch 1", rec, card)
+        (val,) = rec.of("run_val")
+        result["val"] = (val["batches"], val["seconds"])
+        result["saves"] = [(t["step"], t["host_copy_s"], t["write_s"])
+                           for t in solver.ckpt.timings]
+        steps = solver.ckpt.latest_step(), sorted(os.listdir(solver.ckpt.checkpoint_dir))
+        log(f"  val pass: {val['batches']} batches in {val['seconds']:.3f} s; saves (step, host "
+            f"copy s, disk write s): {result['saves']}; checkpoints {steps[1]}; peak memory "
+            f"reserved {result['peak_gib']:.3f} GiB; the run {result['wall_s']:.1f} s wall")
+        if steps[1] != ["12", "24"] or val["batches"] != 8:
+            fail("phase 9: expected the checkpoints of steps 12 and 24 and a val pass of 8 "
+                 "batches (256 videos, 32 a batch)")
+        del solver, rec
+        free_cuda()
+
+        log("phase 9, resume: the solver of --epochs 2 restores step 24; its state against "
+            "the checkpoint's files")
+        with contextlib.redirect_stdout(Tee(sys.stdout)) as out:
+            check = VinceSolver(arg_parser.parse_args(argv + ["--epochs", "2"]))
+        try:
+            if "Restored step 24" not in out.getvalue():
+                fail("phase 9: no 'Restored step 24'")
+            tree_equal("state", state_tree(check.state), check.ckpt.restore_raw(24))
+            if check._prefill_counter or not check._queue_restored:
+                fail("phase 9: the restored queue was refilled")
+            log(f"  restored state bit-identical to the files of step 24 (step "
+                f"{check.state.step}, epoch {check.epoch}, queue rows {check.state.queue.inserted}, "
+                f"not refilled)")
+        finally:
+            check.end()
+        del check
+        free_cuda()
+        with CliRecord() as rec, contextlib.redirect_stdout(Tee(sys.stdout)) as out:
+            solver = solver_runner.main(argv + ["--epochs", "2"])
+        if "Restored step 24" not in out.getvalue() or solver.state.step != 48:
+            fail(f"phase 9: the resumed run ended at step {solver.state.step}, expected 48")
+        paths["CLI ResNet50, resumed epoch 2"] = check_cli_calls("resumed epoch 2", rec,
+                                                                  "ResNet50", 24, 0)
+        result["resumed_laps"] = report_laps("resumed epoch 2", rec, card)
+        del solver, rec
+        free_cuda()
+
+        log("phase 9, ResNet50 with --loader-processes: the parser and the solver, 16 "
+            "iterations, no val, no save")
+        paths["CLI ResNet50 --loader-processes, 16 iterations"], rec = solver_iterations(
+            "--loader-processes", CLI_ARGV + ["--loader-processes", "--description", "processes"],
+            "ResNet50", 16, tmp)
+        result["processes_laps"] = report_laps("--loader-processes", rec, card)
+
+        log("phase 9, EfficientNet-B0: the parser and the solver, --dw-kind pallas, 8 "
+            "iterations, no val")
+        b0_argv = [a for a in CLI_ARGV if a != "--fold-kernel"]
+        b0_argv[b0_argv.index("ResNet50")] = "EfficientNetB0"
+        paths["CLI EfficientNetB0, 8 iterations"], _ = solver_iterations(
+            "B0", b0_argv + ["--dw-kind", "pallas", "--description", "b0"], "EfficientNetB0", 8,
+            tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    result["item_ms"] = time_item()
+    result["loader_ms"] = {"threads": time_loader(False), "processes": time_loader(True)}
+    log(f"phase 9, loader alone: one texture video (scene + 8 frames) {result['item_ms']:.3f} ms "
+        f"on one thread; a batch of 32 videos {result['loader_ms']['threads'][0]:.3f} ms with "
+        f"{result['loader_ms']['threads'][1]} threads, "
+        f"{result['loader_ms']['processes'][0]:.3f} ms with as many processes")
+    return paths, result
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--kernels-only", action="store_true",
@@ -1441,6 +1813,8 @@ def main():
         paths["stand-alone op"] = {"affine_conv3x3_stats": run_conv_bn_op(dev)}
         head_paths, head_times = run_heads(dev, profile_path=args.profile)
         paths.update(head_paths)
+        cli_paths, cli = run_cli(dev, card)
+        paths.update(cli_paths)
         for k in kernels:
             k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items() if k["name"] in n}
             k["launches"] = sum(k["launches_by_path"].values())
@@ -1452,6 +1826,15 @@ def main():
             log(f"phase 8 {what}: " + ", ".join(
                 f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}" for k, v in t.items())
                 + f"; card {card}")
+        for what, laps in (("epoch 1", cli["laps"]), ("resumed epoch 2", cli["resumed_laps"]),
+                           ("--loader-processes", cli["processes_laps"])):
+            log(f"phase 9 {what}: " + ", ".join(
+                f"{m} {laps[m][0]:.3f} ms ({laps[m][1]:.3f}-{laps[m][2]:.3f})" for m in LAPS)
+                + f", {laps['frames_per_s']:.2f} frames/s; phase 5's captured ResNet50 step "
+                f"{times['ResNet50'][1]['ms_per_step']:.3f} ms/step; card {card}")
+        log(f"phase 9 val pass: {cli['val'][0]} batches, {cli['val'][1]:.3f} s; saves (step, host "
+            f"copy s, disk write s) {cli['saves']}; peak reserved {cli['peak_gib']:.3f} GiB; "
+            f"loader alone {cli['loader_ms']}, one video {cli['item_ms']:.3f} ms; card {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

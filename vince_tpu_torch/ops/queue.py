@@ -8,11 +8,15 @@ pure traffic. ``tail`` and ``total`` are int32 0-dim tensors on the bank's
 device, as in JAX, so that a CUDA graph of the step replays the insert at the
 pointer's current value; ``inserted`` mirrors ``total`` on the host, so that
 ``full`` never waits on the device.
+
+``HostImageRing`` keeps a thumbnail of each row on the host, for the image
+panels.
 """
 
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -75,3 +79,38 @@ def enqueue(state: QueueState, items: torch.Tensor,
     state.total.add_(b).clamp_(max=k)
     state.count_inserted(b)
     return state
+
+
+class HostImageRing:
+    """Host-side ring of uint8 thumbnails that mirrors the device queue row
+    for row: the same capacity and tail arithmetic, written every step in the
+    order the step inserts its keys, so that a panel's "queue" neighbours
+    show the negatives that were scored. After a restore the device bank is
+    back but the images are not: ``clear(tail)`` puts the pointer back and
+    leaves the unknown rows None (panels draw them black)."""
+
+    def __init__(self, maxsize: int):
+        self.maxsize = maxsize
+        self.images = [None] * maxsize
+        self.sources = [None] * maxsize
+        self.tail = 0
+
+    def enqueue(self, images, source: str):
+        for im in images:
+            self.images[self.tail] = np.asarray(im)
+            self.sources[self.tail] = source
+            self.tail = (self.tail + 1) % self.maxsize
+
+    def fill_repeat(self, images, sources):
+        """As the queue's prefill: the thumbnails tiled over the whole ring,
+        the tail at 0."""
+        n = len(images)
+        for i in range(self.maxsize):
+            self.images[i] = np.asarray(images[i % n])
+            self.sources[i] = sources[i % n]
+        self.tail = 0
+
+    def clear(self, tail: int = 0):
+        self.images = [None] * self.maxsize
+        self.sources = [None] * self.maxsize
+        self.tail = tail % self.maxsize

@@ -1,0 +1,70 @@
+"""The training entry point (counterpart of ``vince_tpu/solver_runner.py``):
+
+    python -m vince_tpu_torch.solver_runner --solver VinceSolver --dataset ... [--platform cpu]
+
+builds the loggers (none under ``--debug``), the solver by its registry name,
+runs an optional first validation (``--test-first``), then the epochs (each
+its train iterations, then a validation), and saves in ``finally``, also
+after a crash. A failed run exits with code 1.
+"""
+
+import os
+import traceback
+
+from vince_tpu_torch import arg_parser
+from vince_tpu_torch.utils.logger import Logger
+
+
+def get_solver_class(name: str):
+    from vince_tpu_torch.solvers.vince_solver import VinceSolver
+
+    if name != "VinceSolver" and name in arg_parser.SOLVER_NAMES:
+        raise ValueError(f"{name} is an end task, not ported yet (ROADMAP.md §1 item 9)")
+    return {"VinceSolver": VinceSolver}[name]
+
+
+def main(argv=None):
+    """Train as the flags say; returns the solver, ended."""
+    args = arg_parser.parse_args(argv)
+    train_logger = val_logger = None
+    if not args.debug:
+        train_logger = Logger(os.path.join(args.tensorboard_dir, "train"))
+        val_logger = Logger(os.path.join(args.tensorboard_dir, "val"))
+
+    solver = get_solver_class(args.solver or "VinceSolver")(args, train_logger, val_logger)
+
+    failed = True  # KeyboardInterrupt and SystemExit skip the except and else below
+    try:
+        if args.test_first:
+            print("Running initial Val")
+            solver.reset_epoch()
+            solver.run_val()
+
+        while solver.epoch < args.epochs:
+            solver.reset_epoch()
+            print("Running Train epoch", solver.epoch)
+            for _ in range(solver.iterations_per_epoch):
+                solver.run_train_iteration()
+            print("Running Val")
+            solver.run_val()
+            solver.epoch += 1
+    except Exception:
+        traceback.print_exc()
+    else:
+        failed = False
+    finally:
+        # the crash save comes before the shutdown
+        if args.save:
+            print("Saving models")
+            solver.save()
+        solver.end()
+        for logger in (train_logger, val_logger):
+            if logger is not None:
+                logger.close()
+    if failed:
+        raise SystemExit(1)
+    return solver
+
+
+if __name__ == "__main__":
+    main()

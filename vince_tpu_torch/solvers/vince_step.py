@@ -31,6 +31,7 @@ solver alternates a query-side and a key-side step on one state.
 
 import copy
 import dataclasses
+import hashlib
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
@@ -263,6 +264,14 @@ def init_vince_state(seed: int, cfg: VinceConfig, optimizer: OptimizerSpec,
     queue = init_queue(gen, cfg.queue_size, cfg.embed_size, device=device)
     return VinceState(step=0, model=model, key_model=key_model,
                       optimizer=optimizer.make(model.parameters()), queue=queue)
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A new seed from ``seed`` and ``data`` (``jax.random.fold_in`` for the
+    port's integer seeds): the solver folds the prefill's call count and the
+    val pass's batch index into the run's seed."""
+    digest = hashlib.blake2b(f"{int(seed)},{int(data)}".encode(), digest_size=8).digest()
+    return int.from_bytes(digest, "little") >> 1
 
 
 def _generator(device, seed: int, index: int, stream: int) -> torch.Generator:
@@ -560,7 +569,9 @@ class _CapturedTrainStep:
     def _capture(self, state, batch, draws):
         static_batch = tuple({k: v.clone() for k, v in src.items()} for src in batch)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        # thread-local: another thread (the solver's batch staging) may copy
+        # and allocate on its own stream while this one captures
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             metrics = _train_body(self.cfg, state, static_batch, draws, self.jigsaw_side)
         # kept only once the capture succeeded; a capture runs nothing, so
         # this call's step is the first replay

@@ -66,6 +66,7 @@ _BUILDERS = {f.__name__: f for f in (
     BasicImagenetTransform, StandardVideoTransform, SimCLRTransform, JigsawTransform,
     SunSceneTransform, Kinetics400Transform, GOT10KTransform, RepeatedImagenetTransform,
     MoCoV1ImagenetTransform, MoCoV2ImagenetTransform)}
+__all__ = list(_BUILDERS)
 
 
 def make_config(name: str, size, jitter_order: str = None) -> AugmentConfig:
