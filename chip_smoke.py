@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py            # all phases (needs one CUDA device)
     python3 chip_smoke.py --kernels-only --ptxas   # build + kernel checks only
+    python3 chip_smoke.py --end-tasks-only         # build, a short pretraining, phase 10
 
 Phases:
   1. build every CUDA kernel of the port from ``vince_tpu_torch/csrc``;
@@ -50,7 +51,20 @@ Phases:
      the files; the resumed run to step 48; 16 iterations with the loader's
      workers in processes; 8 iterations of an EfficientNet-B0 through the
      parser and the solver (K4); the loader alone, in threads and in
-     processes.
+     processes;
+ 10. the end tasks on phase 9's ResNet50 checkpoint, each through
+     ``solver_runner.main`` (one epoch: its iterations, a save, the val pass)
+     and then ``run_end_task_eval.main`` on the saved state: the frozen
+     ImageNet probe (``ResNet50-IN-probe``: batch 256, 1000 classes, SGD at
+     30, 12 iterations, a val split of 600 images whose last batch is
+     partial), the SUN fine-tune (``ResNet50-SUN-finetune``: batch 256, 397
+     classes, Adam at 0.01, 8 iterations) and the frozen Kinetics LSTM
+     (``ResNet50-Kinetics``: 6 clips of 10 frames, 400 classes, Adam at 0.01,
+     8 iterations, 256 val clips). Each: the encoder bit-identical to the
+     checkpoint's query encoder, finite losses, the meters, exact val
+     passes, ``EVAL_RESULT`` equal to the run's val pass, the peak memory,
+     no launch of any kernel (none is on an end task's path, in JAX either);
+     for the two probes one f32 step on the card against the CPU.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -65,8 +79,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1416,6 +1432,8 @@ CLI_ARGV = ["--solver", "VinceSolver", "--dataset", "SyntheticTextureVideoDatase
             "--compute-dtype", "bfloat16", "--use-fused-infonce", "--fold-kernel",
             "--backbone", "ResNet50", "--base-lr", "0.03", "--iterations-per-epoch", "24",
             "--save-frequency", "12", "--synthetic-num-videos", "256"]
+# the pretraining run of phase 9, whose checkpoints phase 10's end tasks read
+PRETRAIN_RUN = ["--title", "cli", "--description", "resnet50"]
 CLI_METERS = ("data_cache_time", "step_time", "metrics_time", "log_save_time", "total_time")
 # beside the meters: the part of step_time until the step returns to the host
 LAPS = CLI_METERS + ("step host",)
@@ -1671,91 +1689,85 @@ def solver_iterations(what, argv, backbone, iterations, tmp):
     return check_cli_calls(what, rec, backbone, iterations, 1), rec
 
 
-def run_cli(dev, card):
+def run_cli(dev, card, tmp):
     """Phase 9: ``solver_runner.main`` for one epoch of 24 iterations and its
     val pass; the restore of its step-24 checkpoint against the files; the
     resumed run to 48; short runs through the parser and the solver with the
-    loader in processes and with an EfficientNet-B0; the loader alone.
-    Returns the launches of each path and the numbers."""
-    import shutil
-    import tempfile
-
+    loader in processes and with an EfficientNet-B0; the loader alone. Logs
+    and checkpoints go to ``tmp``, where phase 10 reads the pretraining
+    checkpoint. Returns the launches of each path and the numbers."""
     from vince_tpu_torch import arg_parser, solver_runner
     from vince_tpu_torch.solvers.vince_solver import VinceSolver
     from vince_tpu_torch.utils.checkpoint import state_tree
 
     paths, result = {}, {}
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
-    argv = CLI_ARGV + ["--title", "cli", "--description", "resnet50", "--base-logdir", tmp]
+    argv = CLI_ARGV + PRETRAIN_RUN + ["--base-logdir", tmp]
+    log(f"phase 9: python -m vince_tpu_torch.solver_runner {' '.join(CLI_ARGV)} "
+        f"--epochs 1 (logs and checkpoints in a temporary directory)")
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with CliRecord() as rec, contextlib.redirect_stdout(Tee(sys.stdout)):
+        solver = solver_runner.main(argv + ["--epochs", "1"])
+    result["wall_s"] = time.perf_counter() - t0
+    result["peak_gib"] = torch.cuda.max_memory_reserved() / 2**30
+    paths["CLI ResNet50, epoch 1"] = check_cli_calls("epoch 1", rec, "ResNet50", 24, 1)
+    result["laps"] = report_laps("epoch 1", rec, card)
+    (val,) = rec.of("run_val")
+    result["val"] = (val["batches"], val["seconds"])
+    result["saves"] = [(t["step"], t["host_copy_s"], t["write_s"])
+                       for t in solver.ckpt.timings]
+    steps = solver.ckpt.latest_step(), sorted(os.listdir(solver.ckpt.checkpoint_dir))
+    log(f"  val pass: {val['batches']} batches in {val['seconds']:.3f} s; saves (step, host "
+        f"copy s, disk write s): {result['saves']}; checkpoints {steps[1]}; peak memory "
+        f"reserved {result['peak_gib']:.3f} GiB; the run {result['wall_s']:.1f} s wall")
+    if steps[1] != ["12", "24"] or val["batches"] != 8:
+        fail("phase 9: expected the checkpoints of steps 12 and 24 and a val pass of 8 "
+             "batches (256 videos, 32 a batch)")
+    del solver, rec
+    free_cuda()
+
+    log("phase 9, resume: the solver of --epochs 2 restores step 24; its state against "
+        "the checkpoint's files")
+    with contextlib.redirect_stdout(Tee(sys.stdout)) as out:
+        check = VinceSolver(arg_parser.parse_args(argv + ["--epochs", "2"]))
     try:
-        log(f"phase 9: python -m vince_tpu_torch.solver_runner {' '.join(CLI_ARGV)} "
-            f"--epochs 1 (logs and checkpoints in a temporary directory)")
-        free_cuda()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        with CliRecord() as rec, contextlib.redirect_stdout(Tee(sys.stdout)):
-            solver = solver_runner.main(argv + ["--epochs", "1"])
-        result["wall_s"] = time.perf_counter() - t0
-        result["peak_gib"] = torch.cuda.max_memory_reserved() / 2**30
-        paths["CLI ResNet50, epoch 1"] = check_cli_calls("epoch 1", rec, "ResNet50", 24, 1)
-        result["laps"] = report_laps("epoch 1", rec, card)
-        (val,) = rec.of("run_val")
-        result["val"] = (val["batches"], val["seconds"])
-        result["saves"] = [(t["step"], t["host_copy_s"], t["write_s"])
-                           for t in solver.ckpt.timings]
-        steps = solver.ckpt.latest_step(), sorted(os.listdir(solver.ckpt.checkpoint_dir))
-        log(f"  val pass: {val['batches']} batches in {val['seconds']:.3f} s; saves (step, host "
-            f"copy s, disk write s): {result['saves']}; checkpoints {steps[1]}; peak memory "
-            f"reserved {result['peak_gib']:.3f} GiB; the run {result['wall_s']:.1f} s wall")
-        if steps[1] != ["12", "24"] or val["batches"] != 8:
-            fail("phase 9: expected the checkpoints of steps 12 and 24 and a val pass of 8 "
-                 "batches (256 videos, 32 a batch)")
-        del solver, rec
-        free_cuda()
-
-        log("phase 9, resume: the solver of --epochs 2 restores step 24; its state against "
-            "the checkpoint's files")
-        with contextlib.redirect_stdout(Tee(sys.stdout)) as out:
-            check = VinceSolver(arg_parser.parse_args(argv + ["--epochs", "2"]))
-        try:
-            if "Restored step 24" not in out.getvalue():
-                fail("phase 9: no 'Restored step 24'")
-            tree_equal("state", state_tree(check.state), check.ckpt.restore_raw(24))
-            if check._prefill_counter or not check._queue_restored:
-                fail("phase 9: the restored queue was refilled")
-            log(f"  restored state bit-identical to the files of step 24 (step "
-                f"{check.state.step}, epoch {check.epoch}, queue rows {check.state.queue.inserted}, "
-                f"not refilled)")
-        finally:
-            check.end()
-        del check
-        free_cuda()
-        with CliRecord() as rec, contextlib.redirect_stdout(Tee(sys.stdout)) as out:
-            solver = solver_runner.main(argv + ["--epochs", "2"])
-        if "Restored step 24" not in out.getvalue() or solver.state.step != 48:
-            fail(f"phase 9: the resumed run ended at step {solver.state.step}, expected 48")
-        paths["CLI ResNet50, resumed epoch 2"] = check_cli_calls("resumed epoch 2", rec,
-                                                                  "ResNet50", 24, 0)
-        result["resumed_laps"] = report_laps("resumed epoch 2", rec, card)
-        del solver, rec
-        free_cuda()
-
-        log("phase 9, ResNet50 with --loader-processes: the parser and the solver, 16 "
-            "iterations, no val, no save")
-        paths["CLI ResNet50 --loader-processes, 16 iterations"], rec = solver_iterations(
-            "--loader-processes", CLI_ARGV + ["--loader-processes", "--description", "processes"],
-            "ResNet50", 16, tmp)
-        result["processes_laps"] = report_laps("--loader-processes", rec, card)
-
-        log("phase 9, EfficientNet-B0: the parser and the solver, --dw-kind pallas, 8 "
-            "iterations, no val")
-        b0_argv = [a for a in CLI_ARGV if a != "--fold-kernel"]
-        b0_argv[b0_argv.index("ResNet50")] = "EfficientNetB0"
-        paths["CLI EfficientNetB0, 8 iterations"], _ = solver_iterations(
-            "B0", b0_argv + ["--dw-kind", "pallas", "--description", "b0"], "EfficientNetB0", 8,
-            tmp)
+        if "Restored step 24" not in out.getvalue():
+            fail("phase 9: no 'Restored step 24'")
+        tree_equal("state", state_tree(check.state), check.ckpt.restore_raw(24))
+        if check._prefill_counter or not check._queue_restored:
+            fail("phase 9: the restored queue was refilled")
+        log(f"  restored state bit-identical to the files of step 24 (step "
+            f"{check.state.step}, epoch {check.epoch}, queue rows {check.state.queue.inserted}, "
+            f"not refilled)")
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        check.end()
+    del check
+    free_cuda()
+    with CliRecord() as rec, contextlib.redirect_stdout(Tee(sys.stdout)) as out:
+        solver = solver_runner.main(argv + ["--epochs", "2"])
+    if "Restored step 24" not in out.getvalue() or solver.state.step != 48:
+        fail(f"phase 9: the resumed run ended at step {solver.state.step}, expected 48")
+    paths["CLI ResNet50, resumed epoch 2"] = check_cli_calls("resumed epoch 2", rec,
+                                                              "ResNet50", 24, 0)
+    result["resumed_laps"] = report_laps("resumed epoch 2", rec, card)
+    del solver, rec
+    free_cuda()
+
+    log("phase 9, ResNet50 with --loader-processes: the parser and the solver, 16 "
+        "iterations, no val, no save")
+    paths["CLI ResNet50 --loader-processes, 16 iterations"], rec = solver_iterations(
+        "--loader-processes", CLI_ARGV + ["--loader-processes", "--description", "processes"],
+        "ResNet50", 16, tmp)
+    result["processes_laps"] = report_laps("--loader-processes", rec, card)
+
+    log("phase 9, EfficientNet-B0: the parser and the solver, --dw-kind pallas, 8 "
+        "iterations, no val")
+    b0_argv = [a for a in CLI_ARGV if a != "--fold-kernel"]
+    b0_argv[b0_argv.index("ResNet50")] = "EfficientNetB0"
+    paths["CLI EfficientNetB0, 8 iterations"], _ = solver_iterations(
+        "B0", b0_argv + ["--dw-kind", "pallas", "--description", "b0"], "EfficientNetB0", 8,
+        tmp)
 
     result["item_ms"] = time_item()
     result["loader_ms"] = {"threads": time_loader(False), "processes": time_loader(True)}
@@ -1764,6 +1776,294 @@ def run_cli(dev, card):
         f"{result['loader_ms']['threads'][1]} threads, "
         f"{result['loader_ms']['processes'][0]:.3f} ms with as many processes")
     return paths, result
+
+
+# phase 10: the end tasks at the widths of ``end_tasks/*.sh`` on the encoder of
+# phase 9's ResNet50 run (embeddings 128, bf16, 224x224 crops of 256x256
+# canvases), through ``solver_runner.main`` and ``run_end_task_eval.main``
+END_TASK_ARGV = ["--backbone", "ResNet50", "--vince-embedding-size", "128",
+                 "--compute-dtype", "bfloat16", "--input-width", "224", "--input-height", "224",
+                 "--epochs", "1"] + PRETRAIN_RUN
+END_TASK_RUNS = {
+    # train_imagenet.sh: SGD, base-lr 30, step decay at 60 and 80, frozen
+    "ResNet50-IN-probe": dict(
+        solver="EndTaskImagenetSolver", iterations=12, frames=1, val_items=600,
+        argv=["--dataset", "SyntheticImageDataset", "--batch-size", "256",
+              "--end-task-classifier-num-classes", "1000", "--base-lr", "30",
+              "--lr-decay-type", "step", "--lr-step-schedule", "60", "80",
+              "--freeze-feature-extractor"]),
+    # train_sun_scene.sh's Adam at base-lr 0.01, without the freeze flag
+    "ResNet50-SUN-finetune": dict(
+        solver="EndTaskSunSceneSolver", iterations=8, frames=1, val_items=600,
+        argv=["--dataset", "SyntheticImageDataset", "--batch-size", "256",
+              "--end-task-classifier-num-classes", "397", "--base-lr", "0.01"]),
+    # train_kinetics_400.sh: 64 frames a batch = 6 clips of 10, LSTM 512, Adam 0.01
+    "ResNet50-Kinetics": dict(
+        solver="EndTaskKinetics400Solver", iterations=8, frames=10, val_items=None,
+        argv=["--dataset", "SyntheticClipDataset", "--batch-size", "64", "--num-frames", "10",
+              "--end-task-classifier-num-classes", "400", "--base-lr", "0.01",
+              "--freeze-feature-extractor"]),
+}
+END_TASK_LAPS = ("data_cache_time", "step_time", "total_time")
+CARD = "cuda"  # the device that the f32 step of a classifier is held against the CPU on
+
+
+class EndTaskRecord:
+    """While active, wraps the end-task solvers' ``setup_model`` (the first
+    setup's encoder against the pretraining checkpoint's query encoder),
+    ``run_train_iteration`` (its meters' laps and loss), ``run_val`` (its
+    counts, seconds and results) and ``_make_dataset`` (a val split of
+    ``val_items`` images, where given, so that its last batch is partial)."""
+
+    WRAPPED = ("setup_model", "run_train_iteration", "run_val", "_make_dataset")
+
+    def __init__(self, pretrain_encoder, val_items=None):
+        self.pretrain, self.val_items = pretrain_encoder, val_items
+        self.encoder_checks, self.iterations, self.vals = [], [], []
+
+    def __enter__(self):
+        from vince_tpu_torch.solvers.end_task_solvers import EndTaskBaseSolver
+
+        self.cls = EndTaskBaseSolver
+        self.originals = {name: getattr(EndTaskBaseSolver, name) for name in self.WRAPPED}
+        for name, orig in self.originals.items():
+            setattr(EndTaskBaseSolver, name, self._wrap(name, orig))
+        return self
+
+    def _wrap(self, name, orig):
+        def call(solver, *args, **kwargs):
+            if name == "_make_dataset" and args[0] == "val" and self.val_items:
+                from vince_tpu_torch.data.synthetic_dataset import SyntheticImageDataset
+
+                return SyntheticImageDataset(solver.args, "val", num_images=self.val_items)
+            out = orig(solver, *args, **kwargs)
+            if name == "setup_model":
+                encoder = solver.state.encoder.state_dict()
+                self.encoder_checks.append(set(encoder) <= set(self.pretrain) and all(
+                    torch.equal(v.cpu(), self.pretrain[k]) for k, v in encoder.items()))
+            elif name == "run_train_iteration":
+                self.iterations.append(dict(
+                    laps={m: solver.time_meters[m].values[-1] for m in END_TASK_LAPS},
+                    loss=out["loss/total_loss"]))
+            elif name == "run_val":
+                self.vals.append(dict(samples=solver.last_val_samples,
+                                      batches=solver.last_val_batches,
+                                      seconds=solver.last_val_seconds, results=out))
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        for name, orig in self.originals.items():
+            setattr(self.cls, name, orig)
+
+
+def cpu_card_step(solver, images, labels):
+    """One train step of ``solver``'s configuration in float32 from one state
+    (the seed's decoder on the pretraining encoder) and one batch of
+    augmented images, on the card and on the CPU: ((loss on the card, on the
+    CPU), ‖Δcard − Δcpu‖ / ‖Δcpu‖ over every updated parameter, the worst
+    tensor's ratio)."""
+    import dataclasses
+
+    from vince_tpu_torch.solvers import end_task_step as ets
+
+    cfg = dataclasses.replace(solver.cfg, compute_dtype=torch.float32)
+    spec = ets.build_optimizer(cfg, solver.args.base_lr, solver.optimizer_kind,
+                               schedule=solver.lr_schedule)
+    pretrain = read_pretrain(solver.args.checkpoint_dir)
+    original = ets.augment_batch
+    # both sides take the images as they are: the CPU's and the card's
+    # generators draw different numbers
+    ets.augment_batch = lambda gen, images, cfg, dtype=torch.float32, **kw: images.to(dtype)
+    try:
+        losses, deltas = [], []
+        for dev in (CARD, "cpu"):
+            state = ets.init_end_task_state(0, cfg, spec, encoder_tensors=pretrain, device=dev)
+            named = [(n, p) for g, ps in state.optimizer.groups.items()
+                     if g not in state.optimizer.frozen for n, p in ps]
+            before = {n: p.detach().cpu().clone() for n, p in named}
+            step = ets.make_end_task_train_step(cfg)
+            _, metrics = step(state, {"data": images.to(dev), "labels": labels.to(dev)})
+            losses.append(float(metrics["loss/total_loss"]))
+            deltas.append({n: p.detach().cpu() - before[n] for n, p in named})
+            del state
+    finally:
+        ets.augment_batch = original
+    card, cpu = deltas
+    gap = torch.cat([(card[n] - d).reshape(-1) for n, d in cpu.items()])
+    ref = torch.cat([d.reshape(-1) for d in cpu.values()])
+    worst = max(((card[n] - d).norm() / d.norm().clamp(min=1e-30)).item()
+                for n, d in cpu.items())
+    return tuple(losses), (gap.norm() / ref.norm()).item(), worst
+
+
+def read_pretrain(directory):
+    from vince_tpu_torch.utils.checkpoint import read_pretrain_encoder
+
+    tensors = read_pretrain_encoder(directory)
+    if tensors is None:
+        fail(f"phase 10: no pretraining checkpoint in {directory}")
+    return tensors
+
+
+def train_arrays(solver, items):
+    """The first ``items`` items of the run's train split as the solver's
+    host batch: uint8 ``data`` and int32 ``labels`` (one per clip)."""
+    from vince_tpu_torch.data.loader import collate_video_batch
+
+    ds = solver._make_dataset("train")
+    return solver._host_arrays(collate_video_batch([ds[i] for i in range(items)]))
+
+
+def step_batch(solver, rows=16):
+    """``rows`` images of the run's train split, augmented on the CPU by the
+    run's train-mode pipeline: float32 images and labels."""
+    from vince_tpu_torch.ops.augment import augment_batch
+    from vince_tpu_torch.utils.transforms import make_config
+
+    arrays = train_arrays(solver, rows)
+    images = augment_batch(torch.Generator().manual_seed(0), torch.from_numpy(arrays["data"]),
+                           make_config(solver.cfg.transform, solver.cfg.image_size))
+    return images, torch.from_numpy(arrays["labels"])
+
+
+def step_alone_ms(solver, steps=5):
+    """The run's train step with no loader at work (the solver ended): one
+    batch of its train split staged once, ``steps`` steps after one, each
+    timed on the host clock to a synchronise; median and range, ms."""
+    batch = solver.convert_batch(train_arrays(solver, solver._items_per_batch()))
+    ms = []
+    for _ in range(steps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.train_step(solver.state, batch, solver.seed)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms[1:])), min(ms[1:]), max(ms[1:])
+
+
+def run_end_task(name, spec, tmp, card):
+    """One phase-10 run: ``solver_runner.main`` for one epoch (its iterations,
+    a save, the val pass), then ``run_end_task_eval.main`` on the saved
+    state; the checks; the CPU-card step of a classifier."""
+    from vince_tpu_torch import run_end_task_eval, solver_runner
+
+    argv = END_TASK_ARGV + spec["argv"] + [
+        "--solver", spec["solver"], "--base-logdir", tmp,
+        "--iterations-per-epoch", str(spec["iterations"]),
+        "--save-frequency", str(spec["iterations"])]
+    pretrain = read_pretrain(os.path.join(tmp, "cli", "checkpoints_resnet50"))
+    log(f"phase 10, {name}: python -m vince_tpu_torch.solver_runner {' '.join(argv)}, then "
+        f"python -m vince_tpu_torch.run_end_task_eval with the same flags and "
+        f"--disable-dataloader")
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with EndTaskRecord(pretrain, spec["val_items"]) as rec, \
+            contextlib.redirect_stdout(Tee(sys.stdout)) as out:
+        solver = solver_runner.main(argv)
+        train_s = time.perf_counter() - t0
+        evaluated = run_end_task_eval.main(argv + ["--disable-dataloader"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_reserved() / 2**30
+    launches, plain = read_counts()
+    printed = out.getvalue()
+    result = dict(wall_s=wall, train_s=train_s, peak_gib=peak, launches=launches)
+
+    restored = printed.count("Restored pretrain encoder from")
+    if restored != 2 or not rec.encoder_checks or not rec.encoder_checks[0]:
+        fail(f"{name}: 'Restored pretrain encoder' printed {restored} times (expected 2: the "
+             f"run and the eval), encoder bit-identical to the checkpoint's query encoder: "
+             f"{rec.encoder_checks[:1]}")
+    if f"Restored end-task step {spec['iterations']}" not in printed:
+        fail(f"{name}: the eval did not restore the run's end-task step {spec['iterations']}")
+    losses = [it["loss"] for it in rec.iterations]
+    if len(losses) != spec["iterations"] or not all(math.isfinite(x) for x in losses):
+        fail(f"{name}: {len(losses)} iterations, losses {losses}")
+    if launches or plain:
+        fail(f"{name}: the kernels launched {launches} with {plain} plain calls; no end task "
+             f"reaches them, in JAX either")
+    log(f"  encoder bit-identical to the pretraining checkpoint's query encoder; losses "
+        f"{losses[0]:.4f} ... {losses[-1]:.4f}, all finite; launches of "
+        f"{', '.join(wrappers())}: 0 each, plain calls 0")
+
+    laps = {}
+    for m in END_TASK_LAPS:
+        ms = [it["laps"][m] * 1e3 for it in rec.iterations[2:]]
+        laps[m] = (float(np.median(ms)), min(ms), max(ms))
+    frames = solver.args.batch_size // spec["frames"] * spec["frames"]
+    laps["frames_per_s"] = frames / laps["total_time"][0] * 1e3
+    result["laps"] = laps
+    log(f"  meters over iterations 3-{spec['iterations']}: " + ", ".join(
+        f"{m} {laps[m][0]:.3f} ms ({laps[m][1]:.3f}-{laps[m][2]:.3f})" for m in END_TASK_LAPS)
+        + f"; {laps['frames_per_s']:.2f} frames/s ({frames} frames / median total_time); "
+        f"card {card}")
+
+    if len(rec.vals) != 2:
+        fail(f"{name}: {len(rec.vals)} val passes, expected the run's and the eval's")
+    items = solver.args.batch_size // spec["frames"]
+    expected = spec["val_items"] or len(solver._make_dataset("val"))
+    for v in rec.vals:
+        if (v["samples"], v["batches"]) != (expected, -(-expected // items)):
+            fail(f"{name}: a val pass of {v['samples']} samples in {v['batches']} batches, "
+                 f"expected {expected} in {-(-expected // items)} ({items} a batch)")
+    run_val, eval_val = rec.vals
+    line = [x for x in printed.splitlines() if x.startswith("EVAL_RESULT ")]
+    if len(line) != 1:
+        fail(f"{name}: {len(line)} EVAL_RESULT lines")
+    printed_result = json.loads(line[0][len("EVAL_RESULT "):])
+    for k, ref in run_val["results"].items():
+        for got in (printed_result[k], evaluated[k]):
+            if not math.isclose(got, ref, rel_tol=1e-6):
+                fail(f"{name}: EVAL_RESULT {k} {got} against the run's val pass {ref}")
+    result["val"] = [(v["samples"], v["batches"], v["seconds"]) for v in rec.vals]
+    result["eval"] = printed_result
+    log(f"  val passes (run, eval): {result['val']} (samples, batches, s), the last batch "
+        f"{expected - (-(-expected // items) - 1) * items} of {items}; EVAL_RESULT equals the "
+        f"run's val pass (rtol 1e-6): {printed_result}; peak reserved {peak:.3f} GiB; "
+        f"{wall:.1f} s wall")
+
+    result["step_alone"] = step_alone_ms(solver)
+    log(f"  the step alone (loader stopped, one staged batch, 5 steps after 1): median "
+        f"{result['step_alone'][0]:.3f} ms ({result['step_alone'][1]:.3f}-"
+        f"{result['step_alone'][2]:.3f}) against the run's step_time {laps['step_time'][0]:.3f}")
+
+    if spec["frames"] == 1:
+        images, labels = step_batch(solver)
+        step_losses, gap, worst = cpu_card_step(solver, images, labels)
+        result["cpu_card"] = (step_losses, gap, worst)
+        ok = math.isclose(*step_losses, rel_tol=1e-3) and gap <= 5e-2
+        log(f"  one f32 step of {len(labels)} images, card against CPU: loss "
+            f"{step_losses[0]:.6f} / {step_losses[1]:.6f} (rtol 1e-3), update gap "
+            f"{gap:.3e} of its norm (5e-2; worst tensor {worst:.3e})")
+        if not ok:
+            fail(f"{name}: the card's f32 step disagrees with the CPU's")
+    del solver
+    free_cuda()
+    return result
+
+
+def run_end_tasks(card, tmp):
+    """Phase 10: each end-task run on phase 9's pretraining checkpoint; the
+    launches of each path (none) and the numbers."""
+    paths, results = {}, {}
+    for name, spec in END_TASK_RUNS.items():
+        results[name] = run_end_task(name, spec, tmp, card)
+        paths[f"end task {name}"] = results[name]["launches"]
+    return paths, results
+
+
+def pretrain_for_end_tasks(tmp):
+    """``--end-tasks-only``: a 2-iteration pretraining run of phase 9's
+    configuration, saved, in place of phase 9's."""
+    from vince_tpu_torch import solver_runner
+
+    with contextlib.redirect_stdout(Tee(sys.stdout)):
+        solver_runner.main(CLI_ARGV + PRETRAIN_RUN + [
+            "--base-logdir", tmp, "--epochs", "1", "--iterations-per-epoch", "2",
+            "--save-frequency", "2", "--synthetic-num-videos", "64"])
+    free_cuda()
 
 
 def main():
@@ -1776,6 +2076,9 @@ def main():
                         help="after each phase's timed steps, trace one step and write "
                              "the device-time table to PATH with the backbone's (or the "
                              "head configuration's) name before its extension")
+    parser.add_argument("--end-tasks-only", action="store_true",
+                        help="build, a 2-iteration pretraining run in place of phase 9's, "
+                             "then phase 10 (no kernel checks, no result line)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1790,7 +2093,21 @@ def main():
     times = build.build_all(["queue_logsumexp", "affine_relu_dot_moments", "depthwise_conv",
                              "affine_conv3x3_stats"], verbose=args.ptxas)
     log(f"build: {time.perf_counter() - t0:.1f} s wall ({times})")
+    # phase 9's logs and checkpoints, kept until phase 10 has read them
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        if args.end_tasks_only:
+            pretrain_for_end_tasks(tmp)
+            for name, r in run_end_tasks(card, tmp)[1].items():
+                log(f"phase 10 {name}: {r}; card {card}")
+            return
+        run_phases(args, dev, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
+
+def run_phases(args, dev, card, tmp):
+    """Phases 2-10, then the result lines."""
     kernels = [check_queue_logsumexp(dev), check_affine_relu_dot_moments(dev),
                check_affine_conv3x3_stats(dev), *check_depthwise_conv(dev)]
     check_other_shapes(dev)
@@ -1813,8 +2130,10 @@ def main():
         paths["stand-alone op"] = {"affine_conv3x3_stats": run_conv_bn_op(dev)}
         head_paths, head_times = run_heads(dev, profile_path=args.profile)
         paths.update(head_paths)
-        cli_paths, cli = run_cli(dev, card)
+        cli_paths, cli = run_cli(dev, card, tmp)
         paths.update(cli_paths)
+        end_paths, end_tasks = run_end_tasks(card, tmp)
+        paths.update(end_paths)
         for k in kernels:
             k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items() if k["name"] in n}
             k["launches"] = sum(k["launches_by_path"].values())
@@ -1835,6 +2154,18 @@ def main():
         log(f"phase 9 val pass: {cli['val'][0]} batches, {cli['val'][1]:.3f} s; saves (step, host "
             f"copy s, disk write s) {cli['saves']}; peak reserved {cli['peak_gib']:.3f} GiB; "
             f"loader alone {cli['loader_ms']}, one video {cli['item_ms']:.3f} ms; card {card}")
+        for name, r in end_tasks.items():
+            laps = r["laps"]
+            log(f"phase 10 {name}: " + ", ".join(
+                f"{m} {laps[m][0]:.3f} ms ({laps[m][1]:.3f}-{laps[m][2]:.3f})"
+                for m in END_TASK_LAPS)
+                + f", {laps['frames_per_s']:.2f} frames/s; the step alone "
+                f"{r['step_alone'][0]:.3f} ms; val passes (samples, batches, s) "
+                f"{r['val']}; peak reserved {r['peak_gib']:.3f} GiB; train {r['train_s']:.1f} s, "
+                f"with the eval {r['wall_s']:.1f} s wall; kernel launches {r['launches']}"
+                + (f"; f32 step card/CPU loss {r['cpu_card'][0]}, update gap "
+                   f"{r['cpu_card'][1]:.3e} (worst tensor {r['cpu_card'][2]:.3e})"
+                   if "cpu_card" in r else "") + f"; card {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

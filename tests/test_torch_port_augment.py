@@ -86,14 +86,8 @@ def test_finalize_matches_jax():
                                np.asarray(ref), rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("transform", ["StandardVideoTransform", "SimCLRTransform"])
-def test_pipeline_matches_jax_composition(transform):
-    """``apply_augment`` equals the JAX pipeline's steps in ``augment_batch``
-    order, given the same draws."""
-    d = _draws()
-    images = _images()
-    cfg_j = jax_make_config(transform, OUT)
-    cfg_t = make_config(transform, OUT)
+def _jax_pipeline(d, images, cfg_j):
+    """The JAX pipeline's steps in ``augment_batch`` order with the draws ``d``."""
     imgs = jnp.asarray(images).astype(jnp.float32) / 255.0
     w_y = ja._bilinear_matrix(jnp.asarray(d["crop_i"]), jnp.asarray(d["crop_h"]), IN, OUT)
     w_x = ja._bilinear_matrix(jnp.asarray(d["crop_j"]), jnp.asarray(d["crop_w"]), IN, OUT,
@@ -108,8 +102,17 @@ def test_pipeline_matches_jax_composition(transform):
         g = ja._gaussian_matrix(jnp.asarray(d["sigma"]), jnp.asarray(d["blur"]), OUT,
                                 cfg_j.blur_kernel)
         out = ja._apply_separable(out, g, g)
-    ref = ja._finalize(out, cfg_j)
+    return ja._finalize(out, cfg_j)
 
+
+@pytest.mark.parametrize("transform", ["StandardVideoTransform", "SimCLRTransform"])
+def test_pipeline_matches_jax_composition(transform):
+    """``apply_augment`` equals the JAX pipeline's steps in ``augment_batch``
+    order, given the same draws."""
+    d = _draws()
+    images = _images()
+    ref = _jax_pipeline(d, images, jax_make_config(transform, OUT))
+    cfg_t = make_config(transform, OUT)
     draws = ta.AugmentDraws(**{k: _t(v) for k, v in d.items()})
     draws.perm = draws.perm.long()
     got = ta.apply_augment(_t(images), draws, cfg_t)
@@ -238,3 +241,49 @@ def test_named_pipelines_match_jax(name, jitter_order):
     ref = jax_make_config(name, (48, 40), jitter_order=jitter_order)
     got = make_config(name, (48, 40), jitter_order=jitter_order)
     assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+
+
+@pytest.mark.parametrize("group_size", [2, 3])
+def test_group_draws_are_shared_by_a_clips_frames(group_size):
+    """``group_size=T``: one draw per clip of T consecutive rows, repeated
+    over its frames (crop box, flip, jitter, order, grayscale, blur), and
+    clips draw apart."""
+    cfg = make_config("SimCLRTransform", OUT)
+    d = ta.draw_augment_params(torch.Generator().manual_seed(0), 4 * group_size, IN, IN, cfg,
+                               group_size=group_size)
+    for f in dataclasses.fields(d):
+        v = getattr(d, f.name).reshape(4, group_size, *getattr(d, f.name).shape[1:])
+        assert (v == v[:, :1]).all(), f.name
+    assert len(set(d.crop_i.tolist() + d.crop_w.tolist())) > 2
+    with pytest.raises(ValueError, match="groups of"):
+        ta.draw_augment_params(torch.Generator(), 5, IN, IN, cfg, group_size=group_size)
+
+
+@pytest.mark.parametrize("group_size", [2, 3])
+def test_grouped_augment_batch_gives_a_clip_one_augmentation_as_jax_does(group_size):
+    """A clip of T copies of one frame comes out of ``augment_batch`` as T
+    equal frames, in both packages; the clips differ."""
+    clips = _images(seed=4, b=3)
+    frames = np.repeat(clips, group_size, axis=0)
+    for out in (ta.augment_batch(torch.Generator().manual_seed(1), _t(frames),
+                                 make_config("SimCLRTransform", OUT), group_size=group_size).numpy(),
+                np.asarray(ja.augment_batch(jax.random.PRNGKey(1), jnp.asarray(frames),
+                                            jax_make_config("SimCLRTransform", OUT),
+                                            group_size=group_size))):
+        out = out.reshape(3, group_size, OUT, OUT, 3)
+        np.testing.assert_array_equal(out, np.repeat(out[:, :1], group_size, axis=1))
+        assert not np.allclose(out[0, 0], out[1, 0])
+
+
+@pytest.mark.parametrize("transform", ["StandardVideoTransform", "SimCLRTransform"])
+def test_grouped_draws_applied_match_jax_composition(transform):
+    """The port's draws of 2 clips x 3 frames, applied by ``apply_augment``,
+    equal the JAX pipeline's steps with the same (repeated) draws."""
+    cfg_t = make_config(transform, OUT)
+    draws = ta.draw_augment_params(torch.Generator().manual_seed(2), B, IN, IN, cfg_t,
+                                   group_size=3)
+    d = {f.name: getattr(draws, f.name).numpy() for f in dataclasses.fields(draws)}
+    images = _images(seed=5)
+    ref = _jax_pipeline(d, images, jax_make_config(transform, OUT))
+    got = ta.apply_augment(_t(images), draws, cfg_t)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=2e-5)

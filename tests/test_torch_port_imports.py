@@ -26,7 +26,9 @@ assert not bad, bad
 for name in ("models.efficientnet", "ops.kernels.depthwise_kernel", "ops.kernels.conv_bn_kernel",
              "ops.kernels.folded_dot_kernel", "ops.kernels.infonce_kernel", "solvers.vince_step",
              "solver_runner", "solvers.vince_solver", "utils.checkpoint", "data.loader",
-             "data.prefetch", "visualizations.panels"):
+             "data.prefetch", "visualizations.panels", "models.linear_model",
+             "models.kinetics_model", "solvers.end_task_step", "solvers.end_task_solvers",
+             "run_end_task_eval"):
     assert "vince_tpu_torch." + name in sys.modules, name
 from vince_tpu_torch.utils.logger import Logger
 assert Logger("unused").writer is None  # the in-memory history only

@@ -2,7 +2,8 @@
 ``--test-first``, saves at the epoch boundaries, a finished run that trains
 nothing more, a resume when ``--epochs`` grows, and a crash that saves and
 exits 1. Beside it: the prefill's draws per call, the jigsaw warm-up's
-both-sides step, and the flags the port refuses."""
+both-sides step, the flags the port refuses, and the end-task solvers it
+builds."""
 
 import os
 
@@ -13,6 +14,17 @@ import torch
 from vince_tpu_torch import arg_parser
 from vince_tpu_torch import solver_runner
 from vince_tpu_torch.solvers.vince_solver import VinceSolver
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_intra_op_thread():
+    """torch's intra-op pool at one thread for the module: the default pool
+    of one thread per core spins against the other test workers' (the CLI
+    files ran ~7x slower beside them)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _argv(tmp, *extra):
@@ -173,15 +185,31 @@ def test_flags_of_what_is_not_ported_are_refused(tmp_path, extra, item):
 
 
 def test_end_task_solvers_and_a_missing_gpu_are_refused(tmp_path):
-    with pytest.raises(ValueError, match="item 9"):
-        solver_runner.get_solver_class("EndTaskTrackingSolver")
-    argv = _argv(tmp_path)
+    """The tracking solver is refused (item 9b), the three ported end-task
+    solvers build, and without ``--platform cpu`` every solver raises when no
+    GPU is present."""
+    end_tasks = ("EndTaskImagenetSolver", "EndTaskSunSceneSolver", "EndTaskKinetics400Solver")
+    argv = _argv(tmp_path, "--disable-dataloader", "--no-restore")
+    for name in ("EndTaskTrackingSolver",) + end_tasks:
+        argv[argv.index("--solver") + 1] = name
+        cls = solver_runner.get_solver_class(name)
+        if name == "EndTaskTrackingSolver":
+            with pytest.raises(ValueError, match="item 9b"):
+                cls(arg_parser.parse_args(argv))
+            continue
+        solver = cls(arg_parser.parse_args(argv))
+        try:
+            assert type(solver).__name__ == name and solver.state.step == 0
+        finally:
+            solver.end()
     i = argv.index("--platform")
-    args = arg_parser.parse_args(argv[:i] + argv[i + 2:])
-    assert args.platform == "cuda"
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            VinceSolver(args)
+    for name in ("VinceSolver",) + end_tasks:
+        argv[argv.index("--solver") + 1] = name
+        args = arg_parser.parse_args(argv[:i] + argv[i + 2:])
+        assert args.platform == "cuda"
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                solver_runner.get_solver_class(name)(args)
 
 
 def test_profile_dir_traces_global_steps_5_to_8(tmp_path):

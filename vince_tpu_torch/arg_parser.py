@@ -11,7 +11,12 @@ Where the port differs:
   them when it is built, naming the ``ROADMAP.md`` item that ports them: a
   device mesh larger than 1×1, ``--distributed``, ``--sync-bn``,
   ``--shuffle-mode a2a``, ``--remat``, ``--pretrained-weights-path``,
-  ``--use-imagenet-weights``, ``--native-decode``, and the SiamFC backbones.
+  ``--use-imagenet-weights``, ``--native-decode``, and the SiamFC backbones
+  and ``EndTaskTrackingSolver`` of the tracking end task (item 9b).
+
+The end-task solvers (``EndTaskImagenetSolver``, ``EndTaskSunSceneSolver``,
+``EndTaskKinetics400Solver``) take the same flags, through this module's
+``solver_runner`` and ``run_end_task_eval``.
 """
 
 import argparse
@@ -30,7 +35,7 @@ SOLVER_NAMES = [
     "EndTaskTrackingSolver",
     "EndTaskKinetics400Solver",
 ]
-# backbones of the tracking end task (ROADMAP.md §1 item 9)
+# backbones of the tracking end task (ROADMAP.md §1 item 9b)
 SIAMFC_BACKBONES = ["ResNet18SiamFCDilated", "ResNet50SiamFCDilated"]
 backbone_names = list(ported_backbones) + SIAMFC_BACKBONES
 
@@ -54,7 +59,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--debug", action="store_true")
     parser.add_argument("--title", type=str, required=True)
     parser.add_argument("--description", type=str, required=True)
-    parser.add_argument("--num-frames", type=int, default=1)
+    parser.add_argument(
+        "--num-frames", type=int, default=1,
+        help="Frames per video (pretraining) or per clip (Kinetics: a batch of "
+        "--batch-size frames holds batch_size // num_frames clips).",
+    )
     parser.add_argument("--test-first", action="store_true")
     parser.add_argument("--saved-variable-prefix", default="", type=str)
     parser.add_argument("--new-variable-prefix", default="", type=str)
@@ -62,7 +71,11 @@ def build_parser() -> argparse.ArgumentParser:
     # paths
     parser.add_argument("--base-logdir", metavar="DIR", default="logs", type=str)
     parser.add_argument("--tensorboard-dir", metavar="DIR", default="tensorboard")
-    parser.add_argument("--checkpoint-dir", metavar="DIR")
+    parser.add_argument(
+        "--checkpoint-dir", metavar="DIR",
+        help="Pretraining checkpoints (default <base-logdir>/<title>/checkpoints_"
+        "<description>); an end task reads its encoder from the latest one.",
+    )
     parser.add_argument("--long-save-checkpoint-dir", metavar="DIR")
 
     # dataset
@@ -75,12 +88,19 @@ def build_parser() -> argparse.ArgumentParser:
     )
 
     # architecture
-    parser.add_argument("--solver", type=_registry_type(SOLVER_NAMES, "solver"))
+    parser.add_argument(
+        "--solver", type=_registry_type(SOLVER_NAMES, "solver"),
+        help="VinceSolver (pretraining) or an end task; EndTaskTrackingSolver is "
+        "refused (ROADMAP.md §1 item 9b).",
+    )
     parser.add_argument(
         "--backbone", metavar="ARCH", type=_registry_type(backbone_names, "backbone"),
         default="ResNet18",
     )
-    parser.add_argument("--end-task-classifier-num-classes", default=0, type=int)
+    parser.add_argument(
+        "--end-task-classifier-num-classes", default=0, type=int,
+        help="Classes of an end task's decoder (0 = 1000).",
+    )
     parser.add_argument("--use-attention", action="store_true")
     parser.add_argument("--jigsaw", action="store_true")
     # which encoder(s) take the jigsaw head each step: "alternate" draws a
@@ -97,7 +117,11 @@ def build_parser() -> argparse.ArgumentParser:
     # in those N steps, every other step is a plain one (trains the plain
     # projection beside the jigsaw head)
     parser.add_argument("--jigsaw-warmup-mix", action="store_true")
-    parser.add_argument("--freeze-feature-extractor", action="store_true")
+    parser.add_argument(
+        "--freeze-feature-extractor", action="store_true",
+        help="End tasks: the encoder runs in eval mode and takes no update; "
+        "without it the encoder is fine-tuned (train-mode BN, weight decay 1e-4).",
+    )
 
     # loss
     parser.add_argument("--self-batch-comparison", action="store_true")

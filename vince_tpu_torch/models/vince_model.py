@@ -57,6 +57,17 @@ class VinceEncoder(nn.Module):
             if hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
 
+    def extract_features(self, images) -> Dict[str, torch.Tensor]:
+        """images: [N, H, W, C] float → the backbone's ``spatial_features``
+        [N, H', W', C'], the pool's ``extracted_features`` [N, C'] and, with
+        the attention pool, its ``attention_masks``; no embedding head."""
+        spatial = self.backbone(images)
+        features, masks = self.pool(spatial)
+        out = {"spatial_features": spatial, "extracted_features": features}
+        if masks is not None:
+            out["attention_masks"] = masks
+        return out
+
     def forward(self, images, jigsaw: bool = False,
                 jigsaw_perm: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """images: [N, H, W, C] float → embeddings [N, E] (unit rows), the
@@ -65,10 +76,9 @@ class VinceEncoder(nn.Module):
         For ``jigsaw``, ``images`` are the patches [N·9, h, w, C] of
         ``jigsaw_patchify`` and ``jigsaw_perm`` [N, 9] their per-image orders;
         the jigsaw head's output then stands in ``extracted_features`` too."""
-        features, masks = self.pool(self.backbone(images))
-        out = {"extracted_features": features}
-        if masks is not None:
-            out["attention_masks"] = masks
+        out = self.extract_features(images)
+        del out["spatial_features"]
+        features = out["extracted_features"]
         if jigsaw:
             if self.jigsaw is None or jigsaw_perm is None:
                 raise ValueError("a jigsaw forward needs the jigsaw head and the permutations")

@@ -327,10 +327,20 @@ def _finalize(out, cfg: AugmentConfig):
 
 
 def draw_augment_params(generator: torch.Generator, batch: int, in_h: int, in_w: int,
-                        cfg: AugmentConfig) -> AugmentDraws:
-    """Every random number of one train-mode call, from ``generator`` on its device."""
+                        cfg: AugmentConfig, group_size: int = 1) -> AugmentDraws:
+    """Every random number of one train-mode call, from ``generator`` on its
+    device. With ``group_size=T`` one draw is made for each run of T
+    consecutive rows and repeated over them: crop box, flip, jitter factors
+    and order, grayscale and blur are shared by a clip's frames (Kinetics'
+    clip semantics)."""
     if cfg.jitter_order not in ("torchvision", "fixed"):
         raise ValueError(f"jitter_order={cfg.jitter_order!r}; choices: torchvision, fixed")
+    if batch % group_size:
+        raise ValueError(f"a batch of {batch} rows is no whole number of groups of {group_size}")
+    if group_size > 1:
+        draws = draw_augment_params(generator, batch // group_size, in_h, in_w, cfg)
+        return AugmentDraws(**{f.name: getattr(draws, f.name).repeat_interleave(group_size, dim=0)
+                               for f in dataclasses.fields(draws)})
     dev = generator.device
 
     def uniform(lo=0.0, hi=1.0, shape=(batch,)):
@@ -401,14 +411,15 @@ def val_resize_center_crop(images: torch.Tensor, size: Tuple[int, int]) -> torch
 
 
 def augment_batch(generator: torch.Generator, images: torch.Tensor, cfg: AugmentConfig,
-                  dtype=torch.float32, train: bool = True) -> torch.Tensor:
-    """Train-mode augmentation with per-sample randomness from ``generator``;
-    with ``train=False`` the val path, which draws nothing."""
+                  dtype=torch.float32, train: bool = True, group_size: int = 1) -> torch.Tensor:
+    """Train-mode augmentation with per-sample randomness from ``generator``
+    (one draw per ``group_size`` consecutive rows); with ``train=False`` the
+    val path, which draws nothing."""
     if not train:
         imgs = images.float()
         if images.dtype == torch.uint8:
             imgs = imgs / 255.0
         return _finalize(val_resize_center_crop(imgs, cfg.size), cfg).to(dtype)
     b, in_h, in_w, _ = images.shape
-    return apply_augment(images, draw_augment_params(generator, b, in_h, in_w, cfg),
+    return apply_augment(images, draw_augment_params(generator, b, in_h, in_w, cfg, group_size),
                          cfg, dtype)

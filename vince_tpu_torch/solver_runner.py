@@ -2,6 +2,8 @@
 
     python -m vince_tpu_torch.solver_runner --solver VinceSolver --dataset ... [--platform cpu]
 
+for pretraining or, with ``--solver EndTaskImagenetSolver``,
+``EndTaskSunSceneSolver`` or ``EndTaskKinetics400Solver``, an end task. It
 builds the loggers (none under ``--debug``), the solver by its registry name,
 runs an optional first validation (``--test-first``), then the epochs (each
 its train iterations, then a validation), and saves in ``finally``, also
@@ -16,11 +18,16 @@ from vince_tpu_torch.utils.logger import Logger
 
 
 def get_solver_class(name: str):
+    """The solver class of a ``--solver`` name. ``EndTaskTrackingSolver``
+    raises when it is built (``ROADMAP.md`` §1 item 9b)."""
+    from vince_tpu_torch.solvers import end_task_solvers
     from vince_tpu_torch.solvers.vince_solver import VinceSolver
 
-    if name != "VinceSolver" and name in arg_parser.SOLVER_NAMES:
-        raise ValueError(f"{name} is an end task, not ported yet (ROADMAP.md §1 item 9)")
-    return {"VinceSolver": VinceSolver}[name]
+    if name == "VinceSolver":
+        return VinceSolver
+    if name not in arg_parser.SOLVER_NAMES:
+        raise KeyError(f"unknown solver {name!r}; choices: {arg_parser.SOLVER_NAMES}")
+    return getattr(end_task_solvers, name)
 
 
 def main(argv=None):

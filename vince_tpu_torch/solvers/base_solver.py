@@ -111,9 +111,12 @@ class BaseSolver(abc.ABC):
         if len(keys) > 1:
             self.loss_meters["total_loss"] = RollingAverageMeter(self.args.log_frequency)
         self.adjust_learning_rate()
-        if self.train_logger is not None and hasattr(self, "state"):
+        # the pretraining encoder's weights (an end-task state has no ``model``:
+        # JAX logs nothing for it either)
+        model = getattr(getattr(self, "state", None), "model", None)
+        if self.train_logger is not None and model is not None:
             self.train_logger.network_weight_summary(
-                self.state.model, self.iteration, prefix=f"weights/{self.full_name}",
+                model, self.iteration, prefix=f"weights/{self.full_name}",
             )
 
     @abc.abstractmethod

@@ -72,7 +72,7 @@ def refused_flags(args) -> List[str]:
         out.append("--pretrained-weights-path (ROADMAP.md §1 item 6, with item 10's "
                    "torch_convert)")
     if args.backbone in SIAMFC_BACKBONES:
-        out.append(f"--backbone {args.backbone} (the tracking end task, ROADMAP.md §1 item 9)")
+        out.append(f"--backbone {args.backbone} (the tracking end task, ROADMAP.md §1 item 9b)")
     return out
 
 

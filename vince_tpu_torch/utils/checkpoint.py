@@ -19,13 +19,19 @@ directory is not written there again, as orbax skips it.
 
 Restore copies into the state's own tensors in place: a captured train step
 holds their addresses.
+
+An end task's ``EndTaskState`` is kept the same way, under its own tree
+(``end_task_state_tree``: encoder, decoder, the optimizer's buffers and
+count, step), and its encoder is read out of a pretraining checkpoint by
+``read_pretrain_encoder``: the query encoder's tensors, not the key
+encoder's.
 """
 
 import os
 import shutil
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -114,6 +120,25 @@ def load_state_tree(state, tree: Dict, strict: bool = True) -> None:
     state.step = int(tree["step"])
 
 
+def end_task_state_tree(state) -> Dict:
+    """The tensors of an ``EndTaskState`` by name (they are the state's own)."""
+    return {"encoder": state.encoder.state_dict(), "decoder": state.decoder.state_dict(),
+            "optimizer": state.optimizer.state_tree(), "step": int(state.step)}
+
+
+@torch.no_grad()
+def load_end_task_state_tree(state, tree: Dict, strict: bool = True) -> None:
+    """Copy an end-task checkpoint's tree into ``state``'s tensors in place."""
+    _copy_into(state.encoder.state_dict(), tree["encoder"], strict, "encoder")
+    _copy_into(state.decoder.state_dict(), tree["decoder"], strict, "decoder")
+    opt, saved = state.optimizer, tree["optimizer"]
+    for kind, buffers in opt.state_tree().items():
+        if kind != "count":
+            _copy_into(buffers, saved[kind], strict, f"optimizer.{kind}")
+    opt.count = int(saved["count"])
+    state.step = int(tree["step"])
+
+
 def _steps(directory: Optional[str]) -> List[int]:
     if not directory or not os.path.isdir(directory):
         return []
@@ -132,11 +157,40 @@ def _write(directory: str, step: int, tree: Dict) -> None:
     os.rename(tmp, os.path.join(directory, str(step)))
 
 
+def read_pretrain_encoder(directory: str) -> Optional[Dict[str, torch.Tensor]]:
+    """The query encoder's parameters and BatchNorm statistics (``model``)
+    of the latest pretraining checkpoint in ``directory``, on the CPU; None
+    if there is none."""
+    steps = _steps(directory)
+    if not steps:
+        return None
+    path = os.path.join(directory, str(steps[-1]), STATE_FILE)
+    return torch.load(path, map_location="cpu", weights_only=True)["model"]
+
+
+@torch.no_grad()
+def load_pretrain_encoder(encoder, tensors: Dict[str, torch.Tensor]) -> None:
+    """Copy a pretrained encoder's tensors (``read_pretrain_encoder``'s) into
+    ``encoder``: every parameter and statistic it has must be there with its
+    shape; those of heads it lacks (the jigsaw head, the ImageNet decoders)
+    are left out."""
+    own = encoder.state_dict()
+    _copy_into(own, {k: v for k, v in tensors.items() if k in own}, True, "pretrained encoder")
+    unused = len(set(tensors) - set(own))
+    if unused:
+        print(f"pretrained encoder: {unused} tensors of heads the end task does not build "
+              f"left out")
+
+
 class CheckpointManager:
-    """Rolling and long-save checkpoints of a ``VinceState``."""
+    """Rolling and long-save checkpoints of a ``VinceState``, or of another
+    state through ``tree_fn`` (state → tree of tensors) and ``load_fn``
+    (state, tree, strict → None, in place)."""
 
     def __init__(self, checkpoint_dir: str, long_save_checkpoint_dir: Optional[str] = None,
-                 max_to_keep: int = 5, long_save_frequency: int = 25):
+                 max_to_keep: int = 5, long_save_frequency: int = 25,
+                 tree_fn: Callable = state_tree, load_fn: Callable = load_state_tree):
+        self.tree_fn, self.load_fn = tree_fn, load_fn
         self.checkpoint_dir = os.path.abspath(checkpoint_dir)
         self.long_dir = (os.path.abspath(long_save_checkpoint_dir)
                          if long_save_checkpoint_dir else None)
@@ -168,7 +222,7 @@ class CheckpointManager:
         if not targets:
             return
         t0 = time.perf_counter()
-        tree = _to_host(state_tree(state))
+        tree = _to_host(self.tree_fn(state))
         timing = {"step": step, "host_copy_s": time.perf_counter() - t0}
         self.timings.append(timing)
         self._pending = self._executor.submit(self._write_all, targets, step, tree, timing)
@@ -216,7 +270,7 @@ class CheckpointManager:
         if remap:
             for key in ("model", "key_model"):
                 raw[key] = _rename_modules(raw[key], saved_variable_prefix, new_variable_prefix)
-        load_state_tree(state, raw, strict=not remap)
+        self.load_fn(state, raw, strict=not remap)
         return state
 
     def close(self) -> None:

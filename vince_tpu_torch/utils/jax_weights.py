@@ -2,7 +2,8 @@
 
 Input is what ``jax.tree_util.tree_map(np.asarray, …)`` gives: the flax
 ``(params, batch_stats)`` trees as nested dicts of numpy arrays or, for
-``load_jax_state``, a whole ``VinceState`` with numpy leaves. Layouts:
+``load_jax_state`` and ``load_jax_end_task_state``, a whole ``VinceState`` or
+``EndTaskState`` with numpy leaves. Layouts:
 conv kernel [kh, kw, I, O] → weight [O, I, kh, kw]; Dense kernel [I, O] →
 weight [O, I]; BatchNorm scale/bias → weight/bias, mean/var →
 running_mean/running_var. Nothing here imports JAX.
@@ -147,3 +148,91 @@ def load_jax_state(state, jax_state) -> None:
         params = dict(state.model.named_parameters())
         for name, buf in buffers.items():
             state.optimizer.state[params[name]]["momentum_buffer"].copy_(buf)
+
+
+# flax LSTMCell's gate modules in torch's gate order i, f, g, o
+_LSTM_INPUT_GATES = ("ii", "if", "ig", "io")
+_LSTM_HIDDEN_GATES = ("hi", "hf", "hg", "ho")
+
+
+def flax_decoder_to_state_dict(params: Dict) -> Dict[str, np.ndarray]:
+    """An end-task decoder's flax tree → the port's names and layouts:
+    ``MultiLinearModel``'s ``classifier_{i}/{fc0,fc_out}``, and
+    ``Kinetics400Model``'s ``LSTMCell_0`` (the gates' kernels, transposed and
+    stacked in torch's order, and the hidden side's biases as ``bias_hh_l0``;
+    the input side has no bias) and ``fc``. Also maps an optimizer buffer of
+    that tree's shape."""
+    out: Dict[str, np.ndarray] = {}
+    for top, sub in params.items():
+        if top == "LSTMCell_0":
+            for key, gates in (("weight_ih_l0", _LSTM_INPUT_GATES),
+                               ("weight_hh_l0", _LSTM_HIDDEN_GATES)):
+                out[f"lstm.{key}"] = np.concatenate(
+                    [np.asarray(sub[g]["kernel"], np.float32).T for g in gates])
+            out["lstm.bias_hh_l0"] = np.concatenate(
+                [np.asarray(sub[g]["bias"], np.float32) for g in _LSTM_HIDDEN_GATES])
+        elif "kernel" in sub:
+            _emit(out, top, sub, None)
+        else:
+            for name, leafs in sub.items():
+                _emit(out, f"{top}.{name}", leafs, None)
+    return out
+
+
+def _unmasked(tree):
+    """The tree without optax's ``MaskedNode``s (empty named tuples), which
+    stand where a parameter belongs to another group."""
+    if isinstance(tree, dict):
+        kept = {k: _unmasked(v) for k, v in tree.items()}
+        return {k: v for k, v in kept.items() if v is not None}
+    return None if isinstance(tree, tuple) and not tree else tree
+
+
+def _group_buffers(inner) -> Dict[str, Any]:
+    """The optax buffers of one group's chain state: SGD's ``trace``, Adam's
+    ``mu`` and ``nu``, and the update count (None for ``set_to_zero``)."""
+    found: Dict[str, Any] = {}
+
+    def walk(s):
+        fields = getattr(s, "_fields", ())
+        for f in ("trace", "mu", "nu", "count"):
+            if f in fields and f not in found:
+                found[f] = getattr(s, f)
+        if isinstance(s, (tuple, list)):
+            for x in s:
+                walk(x)
+
+    walk(inner)
+    return found
+
+
+def load_jax_end_task_state(state, jax_state) -> None:
+    """Load a JAX ``EndTaskState`` with numpy leaves into the port's: the
+    encoder's weights and statistics, the decoder, the step, and each
+    optimizer group's buffers (SGD's trace; Adam's ``mu``, ``nu``) and update
+    count. The LSTM's ``bias_ih_l0``, which flax does not have, is zero."""
+    load_jax_variables(state.encoder, jax_state.encoder_params, jax_state.encoder_batch_stats)
+    decoder = flax_decoder_to_state_dict(jax_state.decoder_params)
+    if "lstm.bias_ih_l0" in state.decoder.state_dict():
+        decoder["lstm.bias_ih_l0"] = np.zeros_like(decoder["lstm.bias_hh_l0"])
+    state.decoder.load_state_dict(_tensors(decoder, state.decoder), strict=True)
+    state.step = int(jax_state.step)
+    opt = state.optimizer
+    for label, masked in jax_state.opt_state.inner_states.items():
+        found = _group_buffers(masked.inner_state)
+        if "count" in found:
+            opt.count = int(found["count"])
+        for kind in ("trace", "mu", "nu"):
+            if kind not in found:
+                continue
+            tree = _unmasked(found[kind])
+            arrays = {}
+            if "decoder" in tree:
+                arrays.update({f"decoder.{k}": v for k, v in
+                               flax_decoder_to_state_dict(tree["decoder"]).items()})
+            if "encoder" in tree:
+                arrays.update({f"encoder.{k}": v for k, v in
+                               flax_to_state_dict(tree["encoder"], {}).items()})
+            for name, v in arrays.items():
+                buf = opt.state[name][kind]
+                buf.copy_(torch.from_numpy(np.array(v, copy=True)).to(buf.device, buf.dtype))
