@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py            # all phases (needs one CUDA device)
     python3 chip_smoke.py --kernels-only --ptxas   # build + kernel checks only
-    python3 chip_smoke.py --end-tasks-only         # build, a short pretraining, phase 10
+    python3 chip_smoke.py --end-tasks-only         # build, short pretrainings, phases 10-11
 
 Phases:
   1. build every CUDA kernel of the port from ``vince_tpu_torch/csrc``;
@@ -64,7 +64,23 @@ Phases:
      checkpoint's query encoder, finite losses, the meters, exact val
      passes, ``EVAL_RESULT`` equal to the run's val pass, the peak memory,
      no launch of any kernel (none is on an end task's path, in JAX either);
-     for the two probes one f32 step on the card against the CPU.
+     for the two probes one f32 step on the card against the CPU;
+ 11. the SiamFC tracking end task (``ResNet18-SiamFC-tracking``, the widths of
+     ``end_tasks/train_tracking.sh``) on a 2-iteration ResNet18 pretraining
+     of phase 9's configuration: ``solver_runner.main`` (frozen
+     ``ResNet18SiamFCDilated``, GOT-10k pairs of synthetic sequences cropped
+     on the host, batch 256, SGD at 0.01, one epoch of 8 iterations, a save,
+     the exact val pass of 200 pairs), then ``run_end_task_eval.main`` on the
+     saved state (OTB-2015's one-pass evaluation on the synthetic fallback,
+     the batched tracker of 8 slots). Checks: the encoder bit-identical to
+     the checkpoint's query encoder, finite losses, the meters, pairs/s, the
+     step alone, the host's crop, pair and loader times, the val pass's
+     counts, ``EVAL_RESULT`` equal to ``run_eval``'s dict, precision and
+     success in [0, 1], the tracker's frames/s, the batched tracker's boxes
+     against the serial tracker's (float32, 1e-2 px), one f32 step of 16 pairs
+     on the card against the CPU, ``fast_xcorr`` (forward and both gradients)
+     at the run's shape on the card against the CPU, the peak memory, no
+     launch of any kernel.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -1609,21 +1625,23 @@ def report_laps(what, rec, card):
     return out
 
 
-def time_loader(processes, batches=16):
-    """The train loader alone at phase 9's shapes, with the CLI's default
-    workers: ms per batch of 32 videos x (4 + 4) frames over ``batches``
-    batches, after as many as its workers and its queue hold ready at the
-    start (the steady state of a long run)."""
+def time_loader(processes, batches=16, ds=None, batch_size=32):
+    """The train loader alone, with the CLI's default workers, on ``ds`` (by
+    default phase 9's: batches of 32 videos x (4 + 4) frames): ms per batch
+    over ``batches`` batches, after as many as its workers and its queue
+    hold ready at the start (the steady state of a long run)."""
     import argparse as ap
     import multiprocessing
 
     from vince_tpu_torch.data.loader import PersistentDataLoader
     from vince_tpu_torch.data.synthetic_dataset import SyntheticTextureVideoDataset
 
-    ds = SyntheticTextureVideoDataset(ap.Namespace(input_width=224, num_frames=4), "train",
-                                      num_videos=256, num_images_to_return=4)
+    if ds is None:
+        ds = SyntheticTextureVideoDataset(ap.Namespace(input_width=224, num_frames=4), "train",
+                                          num_videos=256, num_images_to_return=4)
     workers = min(multiprocessing.cpu_count(), 16)
-    loader = PersistentDataLoader(batch_size=32, num_workers=workers, use_processes=processes)
+    loader = PersistentDataLoader(batch_size=batch_size, num_workers=workers,
+                                  use_processes=processes)
     loader.set_dataset(ds)
     try:
         for _ in range(workers + loader.prefetch + 1):
@@ -1857,11 +1875,12 @@ class EndTaskRecord:
             setattr(self.cls, name, orig)
 
 
-def cpu_card_step(solver, images, labels):
+def cpu_card_step(solver, batch):
     """One train step of ``solver``'s configuration in float32 from one state
-    (the seed's decoder on the pretraining encoder) and one batch of
-    augmented images, on the card and on the CPU: ((loss on the card, on the
-    CPU), ‖Δcard − Δcpu‖ / ‖Δcpu‖ over every updated parameter, the worst
+    (the seed's decoder on the pretraining encoder) and one batch on the CPU
+    (a classifier's augmented images and labels, or tracking's crops and
+    labels), on the card and on the CPU: ((loss on the card, on the CPU),
+    ‖Δcard − Δcpu‖ / ‖Δcpu‖ over every updated parameter, the worst
     tensor's ratio)."""
     import dataclasses
 
@@ -1883,7 +1902,7 @@ def cpu_card_step(solver, images, labels):
                      if g not in state.optimizer.frozen for n, p in ps]
             before = {n: p.detach().cpu().clone() for n, p in named}
             step = ets.make_end_task_train_step(cfg)
-            _, metrics = step(state, {"data": images.to(dev), "labels": labels.to(dev)})
+            _, metrics = step(state, {k: v.to(dev) for k, v in batch.items()})
             losses.append(float(metrics["loss/total_loss"]))
             deltas.append({n: p.detach().cpu() - before[n] for n, p in named})
             del state
@@ -2031,7 +2050,7 @@ def run_end_task(name, spec, tmp, card):
 
     if spec["frames"] == 1:
         images, labels = step_batch(solver)
-        step_losses, gap, worst = cpu_card_step(solver, images, labels)
+        step_losses, gap, worst = cpu_card_step(solver, {"data": images, "labels": labels})
         result["cpu_card"] = (step_losses, gap, worst)
         ok = math.isclose(*step_losses, rel_tol=1e-3) and gap <= 5e-2
         log(f"  one f32 step of {len(labels)} images, card against CPU: loss "
@@ -2066,6 +2085,242 @@ def pretrain_for_end_tasks(tmp):
     free_cuda()
 
 
+# phase 11: the SiamFC tracking end task at ``end_tasks/train_tracking.sh``'s
+# widths on a ResNet18 pretrained for 2 iterations with phase 9's flags
+TRACKING_NAME = "ResNet18-SiamFC-tracking"
+TRACKING_PRETRAIN_ARGV = CLI_ARGV + ["--backbone", "ResNet18", "--title", "trk",
+                                     "--description", "resnet18", "--epochs", "1",
+                                     "--iterations-per-epoch", "2", "--save-frequency", "2",
+                                     "--synthetic-num-videos", "64"]
+TRACKING_ARGV = ["--solver", "EndTaskTrackingSolver", "--backbone", "ResNet18SiamFCDilated",
+                 "--dataset", "GOT10kDataset", "--batch-size", "256", "--base-lr", "0.01",
+                 "--freeze-feature-extractor", "--input-width", "224", "--input-height", "224",
+                 "--vince-embedding-size", "128", "--compute-dtype", "bfloat16", "--epochs", "1",
+                 "--iterations-per-epoch", "8", "--save-frequency", "8", "--tracker-slots", "8",
+                 "--title", "trk", "--description", "resnet18"]
+TRACKING_VAL_PAIRS = 200  # 8 synthetic sequences x 25 pairs: one partial batch of 256
+
+
+def tracking_host_ms(solver, pairs=16, reps=16):
+    """The tracking epoch's host side on this host's CPU, ms: one crop of a
+    frame of the run's train split to 120 and to 247 and the frame's mean
+    colour (medians of ``reps``), one pair (two crops, the label, the flips;
+    the median of ``pairs``), and the loader alone at the run's shape (a
+    batch of 256 pairs with phase 9's workers, ``time_loader``)."""
+    from vince_tpu_torch.tracking.ops import get_cropped_input
+
+    def median_ms(fn, n):
+        ms = []
+        for i in range(n):
+            t0 = time.perf_counter()
+            fn(i)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ms))
+
+    ds = solver._make_dataset("train")
+    frame = ds.seqs[0][0][0]
+    h, w = frame.shape[:2]
+    side = 0.6 * min(h, w)
+    box = [w / 2 - side / 2, h / 2 - side / 2, w / 2 + side / 2, h / 2 + side / 2]
+    pad = frame.mean(axis=(0, 1))
+    out = {f"crop to {size}": median_ms(
+        lambda i: get_cropped_input(frame, box, 1.0, size, pad_color=pad), reps)
+        for size in (120, 247)}
+    out["mean colour"] = median_ms(lambda i: np.mean(frame, axis=(0, 1), dtype=float), reps)
+    out["pair"] = median_ms(lambda i: ds[i], pairs)
+    out["loader batch"], workers = time_loader(False, batches=6, ds=ds,
+                                               batch_size=solver.args.batch_size)
+    out["loader pairs/s"] = solver.args.batch_size / out["loader batch"] * 1e3
+    return out, (h, w), workers
+
+
+def xcorr_card_cpu(batch, hz=15, hx=31, channels=256, steps=5):
+    """``fast_xcorr`` at the run's shape in float32 (``batch`` exemplars of
+    hz×hz against as many searches of hx×hx, ``channels`` channels): the
+    response and both gradients of a seeded upstream gradient on the card
+    against the CPU, each as its largest difference over the sum of
+    |products| behind that value (the same call on |z|, |x| and |g|: a
+    response sums 57600 products that cancel, so its values are ~1/30 of
+    that sum and their f32 error is set by the sum); and the card's forward
+    and backward, median of ``steps`` after one, ms."""
+    from vince_tpu_torch.ops.xcorr import fast_xcorr
+
+    def value_and_grads(dev, z, x, g):
+        zd, xd = (t.to(dev, copy=True).requires_grad_() for t in (z, x))
+        r = fast_xcorr(zd, xd)
+        r.backward(g.to(dev))
+        return [t.detach().cpu() for t in (r, zd.grad, xd.grad)]
+
+    gen = torch.Generator().manual_seed(11)
+    z = torch.randn(batch, hz, hz, channels, generator=gen)
+    x = torch.randn(batch, hx, hx, channels, generator=gen)
+    g = torch.randn(batch, hx - hz + 1, hx - hz + 1, 1, generator=gen)
+    cpu, card = (value_and_grads(dev, z, x, g) for dev in ("cpu", CARD))
+    sums = value_and_grads("cpu", z.abs(), x.abs(), g.abs())
+    errs = {k: ((c - d).abs() / a).max().item()
+            for k, d, c, a in zip(("response", "grad z", "grad x"), cpu, card, sums)}
+    zd, xd = (t.to(CARD).requires_grad_() for t in (z, x))
+    gd = g.to(CARD)
+    ms = []
+    for _ in range(steps + 1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fast_xcorr(zd, xd).backward(gd)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return errs, float(np.median(ms[1:]))
+
+
+def batched_against_serial(solver, num_seqs=3, num_frames=12):
+    """The batched tracker (8 slots) and the serial one on the run's saved
+    weights in float32 on the card, over synthetic sequences: the largest
+    box difference, px, and the batched tracker's frames/s."""
+    import dataclasses
+
+    from vince_tpu_torch.solvers import end_task_step as ets
+    from vince_tpu_torch.tracking.sequences import SyntheticSequences
+    from vince_tpu_torch.tracking.tracker import BatchedTrackerSiamFC, TrackerSiamFC
+
+    cfg = dataclasses.replace(solver.cfg, compute_dtype=torch.float32)
+    state = ets.init_end_task_state(0, cfg, ets.build_optimizer(cfg, 0.01, "sgd"), device=CARD)
+    state.encoder.load_state_dict(solver.state.encoder.state_dict())
+    state.decoder.load_state_dict(solver.state.decoder.state_dict())
+    seqs = SyntheticSequences(num_seqs=num_seqs, num_frames=num_frames, seed=3)
+    sequences = [(seqs[i][0], seqs[i][1][0]) for i in range(num_seqs)]
+    serial = TrackerSiamFC("serial", None, cfg, state)
+    want = [serial.track(frames, box)[0] for frames, box in sequences]
+    t0 = time.perf_counter()
+    got = BatchedTrackerSiamFC("batched", None, cfg, state, n_slots=8).track_all(sequences)
+    fps = num_seqs * num_frames / (time.perf_counter() - t0)
+    return max(float(np.abs(b - w).max()) for (b, _), w in zip(got, want)), fps
+
+
+def run_tracking(card, tmp, profile_path=None):
+    """Phase 11: the 2-iteration ResNet18 pretraining, then the tracking end
+    task through ``solver_runner.main`` (8 iterations, a save, the exact val
+    pass) and ``run_end_task_eval.main`` (the OTB fallback, the batched
+    tracker); the checks; with ``profile_path``, one traced step alone.
+    Returns the launches of the path and the numbers."""
+    from vince_tpu_torch import run_end_task_eval, solver_runner
+
+    name = TRACKING_NAME
+    with contextlib.redirect_stdout(Tee(sys.stdout)):
+        solver_runner.main(TRACKING_PRETRAIN_ARGV + ["--base-logdir", tmp])
+    free_cuda()
+    argv = TRACKING_ARGV + ["--base-logdir", tmp]
+    iterations = int(argv[argv.index("--iterations-per-epoch") + 1])
+    pretrain = read_pretrain(os.path.join(tmp, "trk", "checkpoints_resnet18"))
+    log(f"phase 11, {name}: python -m vince_tpu_torch.solver_runner {' '.join(argv)}, then "
+        f"python -m vince_tpu_torch.run_end_task_eval with the same flags and "
+        f"--disable-dataloader")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with EndTaskRecord(pretrain) as rec, contextlib.redirect_stdout(Tee(sys.stdout)) as out:
+        solver = solver_runner.main(argv)
+        train_s = time.perf_counter() - t0
+        evaluated = run_end_task_eval.main(argv + ["--disable-dataloader"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_reserved() / 2**30
+    launches, plain = read_counts()
+    printed = out.getvalue()
+    result = dict(wall_s=wall, train_s=train_s, peak_gib=peak, launches=launches)
+
+    restored = printed.count("Restored pretrain encoder from")
+    if restored != 2 or not rec.encoder_checks or not rec.encoder_checks[0]:
+        fail(f"{name}: 'Restored pretrain encoder' printed {restored} times (expected 2), "
+             f"encoder bit-identical to the query encoder: {rec.encoder_checks[:1]}")
+    if f"Restored end-task step {iterations}" not in printed:
+        fail(f"{name}: the eval did not restore the run's end-task step {iterations}")
+    losses = [it["loss"] for it in rec.iterations]
+    if len(losses) != iterations or not all(math.isfinite(x) for x in losses):
+        fail(f"{name}: {len(losses)} iterations, losses {losses}")
+    if launches or plain:
+        fail(f"{name}: the kernels launched {launches} with {plain} plain calls; tracking "
+             f"reaches none of them, in JAX either")
+    log(f"  encoder bit-identical to the pretraining checkpoint's query encoder; losses "
+        f"{losses[0]:.4f} ... {losses[-1]:.4f}, all finite; launches of "
+        f"{', '.join(wrappers())}: 0 each, plain calls 0")
+
+    laps = {}
+    for m in END_TASK_LAPS:
+        ms = [it["laps"][m] * 1e3 for it in rec.iterations[2:]]
+        laps[m] = (float(np.median(ms)), min(ms), max(ms))
+    laps["pairs_per_s"] = solver.args.batch_size / laps["total_time"][0] * 1e3
+    result["laps"] = laps
+    log(f"  meters over iterations 3-{iterations}: " + ", ".join(
+        f"{m} {laps[m][0]:.3f} ms ({laps[m][1]:.3f}-{laps[m][2]:.3f})" for m in END_TASK_LAPS)
+        + f"; {laps['pairs_per_s']:.2f} pairs/s ({solver.args.batch_size} pairs / median "
+        f"total_time); card {card}")
+
+    items = solver.args.batch_size
+    want = (TRACKING_VAL_PAIRS, -(-TRACKING_VAL_PAIRS // items))
+    if len(rec.vals) != 1 or (rec.vals[0]["samples"], rec.vals[0]["batches"]) != want:
+        fail(f"{name}: val passes {[(v['samples'], v['batches']) for v in rec.vals]}, "
+             f"expected one of {want}")
+    result["val"] = (rec.vals[0]["samples"], rec.vals[0]["batches"], rec.vals[0]["seconds"])
+    line = [x for x in printed.splitlines() if x.startswith("EVAL_RESULT ")]
+    if len(line) != 1:
+        fail(f"{name}: {len(line)} EVAL_RESULT lines")
+    printed_result = json.loads(line[0][len("EVAL_RESULT "):])
+    if printed_result != {k: float(v) for k, v in evaluated.items()}:
+        fail(f"{name}: EVAL_RESULT {printed_result} against run_eval's {evaluated}")
+    if not (evaluated.get("synthetic") and evaluated.get("num_sequences") == 3
+            and 0 <= evaluated["precision"] <= 1 and 0 <= evaluated["success"] <= 1):
+        fail(f"{name}: the OTB fallback's result {evaluated}")
+    fps = re.findall(r"= ([0-9.]+) aggregate fps", printed)
+    if len(fps) != 1:
+        fail(f"{name}: {len(fps)} lines of the batched tracker's aggregate frames/s")
+    result["eval"], result["tracker_fps"] = printed_result, float(fps[0])
+    log(f"  val pass {result['val']} (samples, batches, s); EVAL_RESULT equals run_eval's "
+        f"dict: {printed_result}; the tracker {result['tracker_fps']:.1f} frames/s (3 "
+        f"sequences x 12 frames, 8 slots); peak reserved {peak:.3f} GiB; {wall:.1f} s wall")
+
+    result["step_alone"] = step_alone_ms(solver)
+    result["host_ms"], frame_hw, workers = tracking_host_ms(solver)
+    log(f"  the step alone (loader stopped, one staged batch, 5 steps after 1): median "
+        f"{result['step_alone'][0]:.3f} ms ({result['step_alone'][1]:.3f}-"
+        f"{result['step_alone'][2]:.3f}) against the run's step_time "
+        f"{laps['step_time'][0]:.3f}; the host, one thread, a {frame_hw[0]}x{frame_hw[1]} "
+        f"frame: " + ", ".join(f"{k} {v:.3f} ms" for k, v in result["host_ms"].items()
+                              if k.startswith(("crop", "mean", "pair")))
+        + f"; the loader alone ({workers} threads) {result['host_ms']['loader batch']:.3f} ms "
+        f"a batch of {solver.args.batch_size} pairs, "
+        f"{result['host_ms']['loader pairs/s']:.2f} pairs/s")
+    if profile_path:
+        root, ext = os.path.splitext(profile_path)
+        batch = solver.convert_batch(train_arrays(solver, solver._items_per_batch()))
+        profile_step(solver.train_step, solver.state, batch, f"{root}.{TRACKING_NAME}{ext}")
+
+    gap_px, f32_fps = batched_against_serial(solver)
+    result["batched_gap_px"], result["f32_tracker_fps"] = gap_px, f32_fps
+    log(f"  batched (8 slots) against serial tracker, float32 on the card: largest box "
+        f"difference {gap_px:.3e} px (1e-2); batched {f32_fps:.1f} frames/s")
+    if not gap_px <= 1e-2:
+        fail(f"{name}: the batched tracker's boxes differ from the serial one's by {gap_px} px")
+
+    step_losses, gap, worst = cpu_card_step(
+        solver, {k: torch.from_numpy(v) for k, v in train_arrays(solver, 16).items()})
+    result["cpu_card"] = (step_losses, gap, worst)
+    log(f"  one f32 step of 16 pairs, card against CPU: loss {step_losses[0]:.6f} / "
+        f"{step_losses[1]:.6f} (rtol 1e-3), update gap {gap:.3e} of its norm (5e-2; worst "
+        f"tensor {worst:.3e})")
+    if not (math.isclose(*step_losses, rel_tol=1e-3) and gap <= 5e-2):
+        fail(f"{name}: the card's f32 step disagrees with the CPU's")
+    errs, xcorr_ms = xcorr_card_cpu(solver.args.batch_size)
+    result["xcorr"] = (errs, xcorr_ms)
+    log(f"  fast_xcorr at the run's shape ({solver.args.batch_size} x 15x15 against 31x31, "
+        f"256 channels, f32), card against CPU, largest difference over the sum of "
+        f"|products| behind it (1e-5): " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; forward and backward on the card {xcorr_ms:.3f} ms")
+    if not max(errs.values()) <= 1e-5:
+        fail(f"{name}: the card's fast_xcorr disagrees with the CPU's: {errs}")
+    del solver
+    free_cuda()
+    return {f"end task {name}": launches}, result
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--kernels-only", action="store_true",
@@ -2078,7 +2333,7 @@ def main():
                              "head configuration's) name before its extension")
     parser.add_argument("--end-tasks-only", action="store_true",
                         help="build, a 2-iteration pretraining run in place of phase 9's, "
-                             "then phase 10 (no kernel checks, no result line)")
+                             "then phases 10 and 11 (no kernel checks, no result line)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -2100,6 +2355,8 @@ def main():
             pretrain_for_end_tasks(tmp)
             for name, r in run_end_tasks(card, tmp)[1].items():
                 log(f"phase 10 {name}: {r}; card {card}")
+            log(f"phase 11 {TRACKING_NAME}: {run_tracking(card, tmp, args.profile)[1]}; "
+                f"card {card}")
             return
         run_phases(args, dev, card, tmp)
     finally:
@@ -2107,7 +2364,7 @@ def main():
 
 
 def run_phases(args, dev, card, tmp):
-    """Phases 2-10, then the result lines."""
+    """Phases 2-11, then the result lines."""
     kernels = [check_queue_logsumexp(dev), check_affine_relu_dot_moments(dev),
                check_affine_conv3x3_stats(dev), *check_depthwise_conv(dev)]
     check_other_shapes(dev)
@@ -2134,6 +2391,8 @@ def run_phases(args, dev, card, tmp):
         paths.update(cli_paths)
         end_paths, end_tasks = run_end_tasks(card, tmp)
         paths.update(end_paths)
+        tracking_paths, tracking = run_tracking(card, tmp, args.profile)
+        paths.update(tracking_paths)
         for k in kernels:
             k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items() if k["name"] in n}
             k["launches"] = sum(k["launches_by_path"].values())
@@ -2166,6 +2425,20 @@ def run_phases(args, dev, card, tmp):
                 + (f"; f32 step card/CPU loss {r['cpu_card'][0]}, update gap "
                    f"{r['cpu_card'][1]:.3e} (worst tensor {r['cpu_card'][2]:.3e})"
                    if "cpu_card" in r else "") + f"; card {card}")
+        laps = tracking["laps"]
+        log(f"phase 11 {TRACKING_NAME}: " + ", ".join(
+            f"{m} {laps[m][0]:.3f} ms ({laps[m][1]:.3f}-{laps[m][2]:.3f})" for m in END_TASK_LAPS)
+            + f", {laps['pairs_per_s']:.2f} pairs/s; the step alone "
+            f"{tracking['step_alone'][0]:.3f} ms; one pair's crops "
+            f"{tracking['host_ms']['pair']:.3f} ms; the loader alone "
+            f"{tracking['host_ms']['loader pairs/s']:.2f} pairs/s; "
+            f"val pass (samples, batches, s) {tracking['val']}; tracker "
+            f"{tracking['tracker_fps']:.1f} frames/s; OTB fallback {tracking['eval']}; batched "
+            f"against serial {tracking['batched_gap_px']:.3e} px; f32 step card/CPU loss "
+            f"{tracking['cpu_card'][0]}, update gap {tracking['cpu_card'][1]:.3e}; fast_xcorr "
+            f"card/CPU at the run's shape {tracking['xcorr'][0]}; peak reserved "
+            f"{tracking['peak_gib']:.3f} GiB; train {tracking['train_s']:.1f} s, with the eval "
+            f"{tracking['wall_s']:.1f} s wall; kernel launches {tracking['launches']}; card {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -61,7 +61,7 @@ def test_synthetic_items_are_bit_equal(family, repeatable, subset):
 def test_get_dataset_refuses_the_file_backed_datasets():
     assert get_dataset("SyntheticTextureVideoDataset") is tsyn.SyntheticTextureVideoDataset
     for name in ("R2V2Dataset", "ImagenetDataset", "SunSceneDataset", "Kinetics400Dataset",
-                 "GOT10kDataset", "VideoCacherDataset"):
+                 "VideoCacherDataset"):
         with pytest.raises(ValueError, match="ROADMAP.md §1 item 6"):
             get_dataset(name)
 

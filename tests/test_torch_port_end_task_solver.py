@@ -3,8 +3,8 @@ of ``solver_runner.main`` (ResNet18, 32x32, embeddings 16) leaves a
 checkpoint; the probes restore its query encoder bit for bit; the SUN
 fine-tune trains, saves and resumes; the val pass counts a partial last
 batch exactly; ``run_end_task_eval`` prints the val pass of the saved state;
-the Kinetics LSTM runs through the CLI; tracking and a missing GPU are
-refused."""
+the Kinetics LSTM runs through the CLI; a missing GPU is refused (tracking:
+``test_torch_port_tracking_solver.py``)."""
 
 import json
 import os
@@ -182,15 +182,6 @@ def test_kinetics_lstm_through_the_cli(pretrain):
     assert np.isfinite(solver.loss_meters["classifier_loss_0"].value)
     assert solver.state.decoder.lstm.hidden_size == 512
     assert not solver.state.decoder.lstm.bias_ih_l0.any()
-
-
-@pytest.mark.parametrize("extra", [["--solver", "EndTaskTrackingSolver"],
-                                   ["--backbone", "ResNet18SiamFCDilated"]])
-def test_tracking_is_refused(pretrain, extra):
-    tmp, _ = pretrain
-    argv = _argv(tmp, "EndTaskImagenetSolver", "tracking", "--disable-dataloader") + extra
-    with pytest.raises(ValueError, match=r"ROADMAP.md §1 item 9b"):
-        run_end_task_eval.main(argv)
 
 
 @pytest.mark.parametrize("entry", [solver_runner.main, run_end_task_eval.main])

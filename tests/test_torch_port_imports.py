@@ -28,7 +28,10 @@ for name in ("models.efficientnet", "ops.kernels.depthwise_kernel", "ops.kernels
              "solver_runner", "solvers.vince_solver", "utils.checkpoint", "data.loader",
              "data.prefetch", "visualizations.panels", "models.linear_model",
              "models.kinetics_model", "solvers.end_task_step", "solvers.end_task_solvers",
-             "run_end_task_eval"):
+             "run_end_task_eval", "models.tracking_model", "ops.xcorr", "tracking.losses",
+             "tracking.ops", "tracking.siamfc_transforms", "tracking.sequences",
+             "tracking.tracker", "tracking.experiments", "data.pair_dataset",
+             "data.got10k_dataset"):
     assert "vince_tpu_torch." + name in sys.modules, name
 from vince_tpu_torch.utils.logger import Logger
 assert Logger("unused").writer is None  # the in-memory history only

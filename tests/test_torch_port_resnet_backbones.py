@@ -1,6 +1,7 @@
 """The backbones the port adds to its registry against
 ``vince_tpu.models.resnet``: the parameter shapes of ResNet34/101/152/50w2/
-50w4 (from ``jax.eval_shape`` of the flax init, nothing compiled), and the
+50w4 and of the SiamFC-dilated ResNet18/50 (from ``jax.eval_shape`` of the
+flax init, nothing compiled), and the
 train-mode forward and running statistics of ResNet34 and ResNet50w2 at
 32x32 (8 images: stage 4's BatchNorm then normalises 8 values a channel;
 with 2 it magnifies the order of summation past the bound). float32 on the
@@ -20,7 +21,8 @@ from vince_tpu_torch.models import backbones
 
 
 @pytest.mark.parametrize("name", ["ResNet34", "ResNet101", "ResNet152", "ResNet50w2",
-                                  "ResNet50w4"])
+                                  "ResNet50w4", "ResNet18SiamFCDilated",
+                                  "ResNet50SiamFCDilated"])
 def test_backbone_parameter_shapes_match_jax(name):
     """Every parameter and statistic of the registry entry, by name and
     shape, and the output width."""

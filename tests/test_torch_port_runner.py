@@ -177,7 +177,7 @@ def test_jigsaw_warmup_builds_the_both_sides_step(tmp_path, sides):
     (["--distributed"], "item 8"), (["--sync-bn"], "item 8"),
     (["--shuffle-mode", "a2a"], "item 8"), (["--remat"], "item 5"),
     (["--pretrained-weights-path", "w.pt"], "item 6"), (["--use-imagenet-weights"], "item 6"),
-    (["--native-decode"], "item 6"), (["--backbone", "ResNet18SiamFCDilated"], "item 9")])
+    (["--native-decode"], "item 6")])
 def test_flags_of_what_is_not_ported_are_refused(tmp_path, extra, item):
     args = arg_parser.parse_args(_argv(tmp_path, *extra))
     with pytest.raises(ValueError, match=f"ROADMAP.md §1 {item}"):
@@ -185,21 +185,20 @@ def test_flags_of_what_is_not_ported_are_refused(tmp_path, extra, item):
 
 
 def test_end_task_solvers_and_a_missing_gpu_are_refused(tmp_path):
-    """The tracking solver is refused (item 9b), the three ported end-task
-    solvers build, and without ``--platform cpu`` every solver raises when no
-    GPU is present."""
-    end_tasks = ("EndTaskImagenetSolver", "EndTaskSunSceneSolver", "EndTaskKinetics400Solver")
+    """The four end-task solvers build (tracking maps the ResNet18 to its
+    dilated variant), and without ``--platform cpu`` every solver raises when
+    no GPU is present."""
+    end_tasks = ("EndTaskImagenetSolver", "EndTaskSunSceneSolver", "EndTaskKinetics400Solver",
+                 "EndTaskTrackingSolver")
     argv = _argv(tmp_path, "--disable-dataloader", "--no-restore")
-    for name in ("EndTaskTrackingSolver",) + end_tasks:
+    for name in end_tasks:
         argv[argv.index("--solver") + 1] = name
         cls = solver_runner.get_solver_class(name)
-        if name == "EndTaskTrackingSolver":
-            with pytest.raises(ValueError, match="item 9b"):
-                cls(arg_parser.parse_args(argv))
-            continue
         solver = cls(arg_parser.parse_args(argv))
         try:
             assert type(solver).__name__ == name and solver.state.step == 0
+            if name == "EndTaskTrackingSolver":
+                assert solver.cfg.backbone == "ResNet18SiamFCDilated"
         finally:
             solver.end()
     i = argv.index("--platform")

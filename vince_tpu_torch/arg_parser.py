@@ -11,12 +11,11 @@ Where the port differs:
   them when it is built, naming the ``ROADMAP.md`` item that ports them: a
   device mesh larger than 1×1, ``--distributed``, ``--sync-bn``,
   ``--shuffle-mode a2a``, ``--remat``, ``--pretrained-weights-path``,
-  ``--use-imagenet-weights``, ``--native-decode``, and the SiamFC backbones
-  and ``EndTaskTrackingSolver`` of the tracking end task (item 9b).
+  ``--use-imagenet-weights`` and ``--native-decode``.
 
 The end-task solvers (``EndTaskImagenetSolver``, ``EndTaskSunSceneSolver``,
-``EndTaskKinetics400Solver``) take the same flags, through this module's
-``solver_runner`` and ``run_end_task_eval``.
+``EndTaskKinetics400Solver``, ``EndTaskTrackingSolver``) take the same flags,
+through this package's ``solver_runner`` and ``run_end_task_eval``.
 """
 
 import argparse
@@ -35,9 +34,7 @@ SOLVER_NAMES = [
     "EndTaskTrackingSolver",
     "EndTaskKinetics400Solver",
 ]
-# backbones of the tracking end task (ROADMAP.md §1 item 9b)
-SIAMFC_BACKBONES = ["ResNet18SiamFCDilated", "ResNet50SiamFCDilated"]
-backbone_names = list(ported_backbones) + SIAMFC_BACKBONES
+backbone_names = list(ported_backbones)
 
 
 def _registry_type(names, kind):
@@ -90,8 +87,7 @@ def build_parser() -> argparse.ArgumentParser:
     # architecture
     parser.add_argument(
         "--solver", type=_registry_type(SOLVER_NAMES, "solver"),
-        help="VinceSolver (pretraining) or an end task; EndTaskTrackingSolver is "
-        "refused (ROADMAP.md §1 item 9b).",
+        help="VinceSolver (pretraining) or an end task.",
     )
     parser.add_argument(
         "--backbone", metavar="ARCH", type=_registry_type(backbone_names, "backbone"),

@@ -1,8 +1,11 @@
 """Dataset registry (counterpart of ``vince_tpu/data/__init__.py``): the names
 the CLI takes, and the classes of those that are ported. The file-backed
-datasets (R2V2, ImageNet, SUN, Kinetics, GOT-10k and the video cacher) are
-not ported yet (``ROADMAP.md`` §1 item 6)."""
+datasets (R2V2, ImageNet, SUN, Kinetics and the video cacher) are not ported
+yet (``ROADMAP.md`` §1 item 6). ``GOT10kDataset`` reads the GOT-10k
+sequences under ``--data-path`` (with ``cv2``), or makes synthetic ones in
+memory."""
 
+from vince_tpu_torch.data.got10k_dataset import GOT10kDataset
 from vince_tpu_torch.data.npz_dataset import NPZDataset, NPZImageDataset
 from vince_tpu_torch.data.synthetic_dataset import (
     SyntheticClipDataset,
@@ -31,7 +34,7 @@ __all__ = [
     "SyntheticTextureClipDataset",
 ]
 
-NOT_PORTED = ("GOT10kDataset", "ImagenetDataset", "Kinetics400Dataset", "R2V2Dataset",
+NOT_PORTED = ("ImagenetDataset", "Kinetics400Dataset", "R2V2Dataset",
               "GOT10KR2V2Dataset", "SunSceneDataset", "VideoCacherDataset")
 
 

@@ -1,14 +1,14 @@
 """Backbone registry (counterpart of ``vince_tpu/models/backbones.py``): the
-ResNets and EfficientNets that the pretraining step takes (the SiamFC-dilated
-ResNets of the tracking end task are not ported)."""
+ResNets and EfficientNets that the pretraining step takes, and the dilated
+ResNets of the SiamFC tracking end task."""
 
 from typing import Any, Dict
 
 from vince_tpu_torch.models import efficientnet, resnet
 
 __all__ = ["ResNet18", "ResNet34", "ResNet50", "ResNet101", "ResNet152", "ResNet50w2",
-           "ResNet50w4", "EfficientNetB0", "EfficientNetB1", "EfficientNetB2",
-           "EfficientNetB3", "EfficientNetB4"]
+           "ResNet50w4", "ResNet18SiamFCDilated", "ResNet50SiamFCDilated", "EfficientNetB0",
+           "EfficientNetB1", "EfficientNetB2", "EfficientNetB3", "EfficientNetB4"]
 
 ResNet18 = resnet.ResNet18
 ResNet34 = resnet.ResNet34
@@ -17,6 +17,8 @@ ResNet101 = resnet.ResNet101
 ResNet152 = resnet.ResNet152
 ResNet50w2 = resnet.ResNet50w2
 ResNet50w4 = resnet.ResNet50w4
+ResNet18SiamFCDilated = resnet.ResNet18SiamFCDilated
+ResNet50SiamFCDilated = resnet.ResNet50SiamFCDilated
 EfficientNetB0 = efficientnet.EfficientNetB0
 EfficientNetB1 = efficientnet.EfficientNetB1
 EfficientNetB2 = efficientnet.EfficientNetB2

@@ -271,15 +271,16 @@ def _kernel_site_supported(y, features: int) -> bool:
 
 class BasicBlock(nn.Module):
     """2×(3×3 conv) residual block (``fold_all`` is the bottleneck's: this
-    block has no 1×1 conv1)."""
+    block has no 1×1 conv1). Only conv1 takes the ``dilation``; conv2 stays
+    undilated, as in the reference's block."""
 
     expansion = 1
 
     def __init__(self, cin: int, filters: int, stride: int = 1, downsample: bool = False,
                  fold: bool = False, fold_kernel: bool = False, fold_all: bool = False,
-                 dtype=torch.float32, norm=BatchNorm):
+                 dtype=torch.float32, norm=BatchNorm, dilation: int = 1):
         super().__init__()
-        self.conv1 = Conv2d(cin, filters, 3, stride=stride, padding=1)
+        self.conv1 = Conv2d(cin, filters, 3, stride=stride, padding=dilation, dilation=dilation)
         self.bn1 = norm(filters)
         self.conv2 = Conv2d(filters, filters, 3, padding=1)
         self.bn2 = norm(filters, zero_scale=True)
@@ -303,18 +304,19 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """1×1 → 3×3 → 1×1 residual block, stride on the 3×3."""
+    """1×1 → 3×3 → 1×1 residual block, stride and dilation on the 3×3."""
 
     expansion = 4
 
     def __init__(self, cin: int, filters: int, stride: int = 1, downsample: bool = False,
                  fold: bool = False, fold_kernel: bool = False, fold_all: bool = False,
-                 dtype=torch.float32, norm=BatchNorm):
+                 dtype=torch.float32, norm=BatchNorm, dilation: int = 1):
         super().__init__()
         out_ch = filters * self.expansion
         self.conv1 = Conv1x1(cin, filters)
         self.bn1 = norm(filters)
-        self.conv2 = Conv2d(filters, filters, 3, stride=stride, padding=1)
+        self.conv2 = Conv2d(filters, filters, 3, stride=stride, padding=dilation,
+                            dilation=dilation)
         self.bn2 = norm(filters)
         self.conv3 = Conv1x1(filters, out_ch)
         self.bn3 = norm(out_ch, zero_scale=True)
@@ -352,11 +354,18 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """Feature-extractor ResNet: NHWC images → spatial features [N, H/32, W/32, C]."""
+    """Feature-extractor ResNet: NHWC images → spatial features [N, H/32, W/32, C].
+
+    ``replace_stride_with_dilation[i]`` turns stage i+2's stride of 2 into a
+    doubled dilation, torchvision's rule: the stage's first block keeps the
+    previous dilation, its later blocks take the new one, and its downsample
+    is a stride-1 1×1 conv wherever the channels change. The SiamFC backbones
+    dilate stages 3 and 4 and give features at stride 8."""
 
     def __init__(self, stage_sizes: Sequence[int], block_cls, num_filters: int = 64,
                  bn_fold: str = "none", fold_kernel: bool = False, dtype=torch.float32,
-                 in_channels: int = 3, norm_kind: str = "batchnorm", stem_kind: str = "conv7"):
+                 in_channels: int = 3, norm_kind: str = "batchnorm", stem_kind: str = "conv7",
+                 replace_stride_with_dilation: Sequence[bool] = (False, False, False)):
         super().__init__()
         if bn_fold not in ("none", "expand", "all"):
             raise ValueError(f"bn_fold={bn_fold!r}; choices: none, expand, all")
@@ -371,15 +380,21 @@ class ResNet(nn.Module):
         self.bn1 = norm(num_filters)
         cin = num_filters
         fold = bn_fold != "none" and norm_kind == "batchnorm"
+        dilation = 1
         for stage, num_blocks in enumerate(stage_sizes):
             filters = num_filters * 2 ** stage
+            stride = 1 if stage == 0 else 2
+            previous = dilation
+            if stage > 0 and replace_stride_with_dilation[stage - 1]:
+                dilation, stride = dilation * stride, 1
             blocks = []
             for block in range(num_blocks):
-                s = (1 if stage == 0 else 2) if block == 0 else 1
+                s = stride if block == 0 else 1
                 needs_down = s != 1 or cin != filters * block_cls.expansion
                 blocks.append(block_cls(cin, filters, s, needs_down, fold=fold,
                                         fold_kernel=fold_kernel, fold_all=bn_fold == "all",
-                                        dtype=dtype, norm=norm))
+                                        dtype=dtype, norm=norm,
+                                        dilation=previous if block == 0 else dilation))
                 cin = filters * block_cls.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
         self.num_stages = len(stage_sizes)
@@ -408,3 +423,10 @@ ResNet50w2 = functools.partial(ResNet, stage_sizes=[3, 4, 6, 3], block_cls=Bottl
                                num_filters=128)
 ResNet50w4 = functools.partial(ResNet, stage_sizes=[3, 4, 6, 3], block_cls=Bottleneck,
                                num_filters=256)
+# dense features for SiamFC tracking: stages 3 and 4 dilated, stride 8
+ResNet18SiamFCDilated = functools.partial(
+    ResNet, stage_sizes=[2, 2, 2, 2], block_cls=BasicBlock,
+    replace_stride_with_dilation=(False, True, True))
+ResNet50SiamFCDilated = functools.partial(
+    ResNet, stage_sizes=[3, 4, 6, 3], block_cls=Bottleneck,
+    replace_stride_with_dilation=(False, True, True))

@@ -5,9 +5,10 @@
 
 parses the training CLI's flags, builds the solver with no loggers (it
 restores the pretrained encoder and the end task's latest checkpoint), runs
-one complete val pass (``run_eval``), prints ``EVAL_RESULT`` and the results
-as one JSON object with sorted keys, and ends the solver, also after a
-failure.
+``run_eval`` (one complete val pass; for tracking, OTB-2015's one-pass
+evaluation of the tracker), prints ``EVAL_RESULT`` and the results as one
+JSON object with sorted keys and float values, and ends the solver, also
+after a failure.
 """
 
 import json

@@ -3,7 +3,8 @@
     python -m vince_tpu_torch.solver_runner --solver VinceSolver --dataset ... [--platform cpu]
 
 for pretraining or, with ``--solver EndTaskImagenetSolver``,
-``EndTaskSunSceneSolver`` or ``EndTaskKinetics400Solver``, an end task. It
+``EndTaskSunSceneSolver``, ``EndTaskKinetics400Solver`` or
+``EndTaskTrackingSolver``, an end task. It
 builds the loggers (none under ``--debug``), the solver by its registry name,
 runs an optional first validation (``--test-first``), then the epochs (each
 its train iterations, then a validation), and saves in ``finally``, also
@@ -18,8 +19,7 @@ from vince_tpu_torch.utils.logger import Logger
 
 
 def get_solver_class(name: str):
-    """The solver class of a ``--solver`` name. ``EndTaskTrackingSolver``
-    raises when it is built (``ROADMAP.md`` §1 item 9b)."""
+    """The solver class of a ``--solver`` name."""
     from vince_tpu_torch.solvers import end_task_solvers
     from vince_tpu_torch.solvers.vince_solver import VinceSolver
 

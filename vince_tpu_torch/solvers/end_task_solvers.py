@@ -1,5 +1,6 @@
 """End-task solvers (counterpart of ``vince_tpu/solvers/end_task_solvers.py``):
-the ImageNet and SUN-397 probes and the Kinetics-400 LSTM on one device.
+the ImageNet and SUN-397 probes, the Kinetics-400 LSTM and SiamFC tracking on
+one device.
 
 - The encoder is restored from a VINCE pretraining checkpoint of the port
   (``--checkpoint-dir``, by default ``<base_logdir>/<title>/checkpoints_
@@ -10,7 +11,8 @@ the ImageNet and SUN-397 probes and the Kinetics-400 LSTM on one device.
   optimizer group, weight decay 1e-4).
 - ImageNet: SGD with momentum, the heads at base_lr·(1, 0.01); SUN: Adam,
   equal rates; Kinetics: Adam, an LSTM over each clip's frames (a batch of
-  ``--batch-size`` frames is ``batch_size // num_frames`` clips).
+  ``--batch-size`` frames is ``batch_size // num_frames`` clips); tracking:
+  SGD with momentum, GOT-10k pairs cropped on the host, a dilated ResNet.
 - An iteration: wait for the staged batch, the eager step, the metrics
   brought to the host in one copy, meters and log, the save cadence on the
   global step. The end task's checkpoints live under
@@ -18,11 +20,11 @@ the ImageNet and SUN-397 probes and the Kinetics-400 LSTM on one device.
   restore sets ``iteration = step · batch_size``.
 - Validation is one exact pass over the val split: its last batch is padded
   by cycling its items, and only the real items' per-sample metrics count.
-  ``run_eval`` is that pass on a freshly built val loader.
-
-The tracking solver is not ported (``ROADMAP.md`` §1 item 9b).
+  ``run_eval`` is that pass on a freshly built val loader; for tracking it
+  is OTB-2015's one-pass evaluation of the tracker instead.
 """
 
+import dataclasses
 import os
 import time
 from typing import Dict, Optional
@@ -34,9 +36,9 @@ from vince_tpu_torch.data import get_dataset
 from vince_tpu_torch.data.loader import PersistentDataLoader
 from vince_tpu_torch.data.prefetch import BatchPrefetcher, pull_with_kill, ready, stage
 from vince_tpu_torch.device import resolve_device
+from vince_tpu_torch.models import backbones
 from vince_tpu_torch.solvers.base_solver import BaseSolver
 from vince_tpu_torch.solvers.end_task_step import (
-    TRACKING_NOT_PORTED,
     EndTaskConfig,
     build_optimizer,
     init_end_task_state,
@@ -339,9 +341,71 @@ class EndTaskKinetics400Solver(EndTaskBaseSolver):
 
 
 class EndTaskTrackingSolver(EndTaskBaseSolver):
-    """SiamFC tracking: refused when built."""
+    """SiamFC tracking: SGD on GOT-10k pairs (``GOT10kDataset``: exemplar crops
+    of 120, search crops of 247, 17×17 labels), a stride-8 dilated ResNet;
+    ``run_eval`` is OTB-2015's one-pass evaluation of the tracker (the
+    batched one with ``--tracker-slots`` > 1) on ``<data_path>/otb100``, or
+    on synthetic sequences without it. The results go to
+    ``<base_logdir>/<title>/<ModelName>/results/OTB2015``."""
 
     task = "tracking"
+    optimizer_kind = "sgd"
+    default_dataset = "GOT10kDataset"
+    default_transform = "GOT10KTransform"
 
-    def __init__(self, args, train_logger=None, val_logger=None):
-        raise ValueError(TRACKING_NOT_PORTED)
+    def make_config(self) -> EndTaskConfig:
+        """A plain ResNet becomes its dilated variant (the same parameters:
+        dilation changes no weight), as the labels' 17×17 maps need stride-8
+        features; any other backbone raises."""
+        cfg = super().make_config()
+        if not cfg.backbone.endswith("SiamFCDilated"):
+            dilated = cfg.backbone + "SiamFCDilated"
+            if dilated not in backbones.__all__:
+                raise ValueError(
+                    f"tracking needs a stride-8 dilated backbone; no dilated variant of "
+                    f"{cfg.backbone!r} exists (use ResNet18SiamFCDilated / "
+                    f"ResNet50SiamFCDilated)")
+            print(f"tracking: using {dilated} (dense stride-8 features) for --backbone "
+                  f"{cfg.backbone}")
+            cfg = dataclasses.replace(cfg, backbone=dilated)
+        return cfg
+
+    def _host_arrays(self, host_batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        return {"exemplar": host_batch["exemplar"], "search": host_batch["search"],
+                "labels": np.asarray(host_batch["labels"], np.float32)}
+
+    def loss_keys(self):
+        return ["siam_tracking_loss"]
+
+    def metric_keys(self):
+        return ["dist", "center_dist", "mean_iou"]
+
+    def run_eval(self):
+        """The tracker on OTB-2015 (or the synthetic fallback): precision,
+        success, speed_fps, and ``synthetic`` and ``num_sequences`` for the
+        fallback."""
+        from vince_tpu_torch.tracking.experiments import ExperimentOTB
+        from vince_tpu_torch.tracking.tracker import BatchedTrackerSiamFC, TrackerSiamFC
+
+        args = self.args
+        n_slots = getattr(args, "tracker_slots", 8)
+        name = f"SiamFC_{self.model_name}_{args.description}"
+        if n_slots > 1:
+            tracker = BatchedTrackerSiamFC(name, None, self.cfg, self.state, n_slots=n_slots)
+        else:
+            tracker = TrackerSiamFC(name, None, self.cfg, self.state)
+        root = os.path.join(args.data_path, "otb100") if args.data_path else None
+        result_dir = os.path.join(args.base_logdir, args.title, self.model_name, "results",
+                                  "OTB2015")
+        experiment = ExperimentOTB(root, result_dir=result_dir,
+                                   texture=getattr(args, "synthetic_texture", False))
+        results = experiment.run(tracker)
+        if results.get("synthetic"):
+            print("OTB results (SYNTHETIC smoke fallback — not a real OTB score):", results)
+        else:
+            print("OTB results:", results)
+        if self.val_logger is not None:
+            self.val_logger.dict_log(
+                {f"epoch/{self.full_name}/otb_{k}": float(v) for k, v in results.items()},
+                self.iteration)
+        return results

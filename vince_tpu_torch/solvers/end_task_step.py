@@ -1,18 +1,21 @@
 """End-task train and eval steps on one GPU (counterpart of
 ``vince_tpu/solvers/end_task_step.py``): a frozen or fine-tuned VINCE encoder
-and a decoder, for two tasks:
+and a decoder, for three tasks:
 
 - ``classifier``: ``MultiLinearModel``'s two heads, a linear probe and a
   2-layer MLP (the ImageNet and SUN-397 probes), each with its CE loss;
-- ``kinetics``: an LSTM over the per-frame features of each clip.
-
-The third task of the JAX package, ``tracking``, is not ported
-(``ROADMAP.md`` §1 item 9b).
+- ``kinetics``: an LSTM over the per-frame features of each clip;
+- ``tracking``: the SiamFC head on the spatial features of a dilated ResNet.
 
     uint8 frames → augmentation on the device (one draw per clip for
     Kinetics) → encoder features (eval mode under no_grad when frozen; train
     mode, its BatchNorm running averages moving, when fine-tuned) → decoder →
     CE and accuracy per head → backward → one update of each optimizer group
+
+For tracking the host has already cropped the exemplar and search images,
+so the step only normalises them; the exemplar forward comes first, then the
+search forward, and a fine-tuned encoder's running averages move through
+both, in that order, as the JAX step chains them.
 
 The JAX step is a pure function of an immutable state. Here the state holds
 the modules and the optimizer, and a step updates them in place and returns
@@ -30,15 +33,14 @@ from torch import nn
 from vince_tpu_torch.device import full_f32_products, resolve_device
 from vince_tpu_torch.models.kinetics_model import Kinetics400Model, kinetics_losses
 from vince_tpu_torch.models.linear_model import MultiLinearModel, classifier_losses
+from vince_tpu_torch.models.tracking_model import SiamFCTrackingModel, tracking_losses
 from vince_tpu_torch.models.vince_model import VinceEncoder
-from vince_tpu_torch.ops.augment import augment_batch
+from vince_tpu_torch.ops.augment import AugmentConfig, _finalize, augment_batch
 from vince_tpu_torch.solvers.vince_step import _generator
 from vince_tpu_torch.utils.checkpoint import load_pretrain_encoder
 from vince_tpu_torch.utils.transforms import make_config
 
-TASKS = ("classifier", "kinetics")
-TRACKING_NOT_PORTED = ("the tracking end task (SiamFC on dilated ResNets) is not ported yet "
-                       "(ROADMAP.md §1 item 9b)")
+TASKS = ("classifier", "kinetics", "tracking")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +48,7 @@ class EndTaskConfig:
     """Static configuration of an end-task step: the JAX config's fields less
     the mesh's axis size."""
 
-    task: str  # "classifier" | "kinetics"
+    task: str  # "classifier" | "kinetics" | "tracking"
     backbone: str = "ResNet18"
     embed_size: int = 64  # must match the pretrain checkpoint
     num_classes: int = 1000
@@ -65,8 +67,7 @@ class EndTaskConfig:
 
 def _check_task(cfg: EndTaskConfig) -> None:
     if cfg.task not in TASKS:
-        raise ValueError(TRACKING_NOT_PORTED if cfg.task == "tracking"
-                         else f"unknown end task {cfg.task!r}; choices: {TASKS}")
+        raise ValueError(f"unknown end task {cfg.task!r}; choices: {TASKS}")
 
 
 SGD_MOMENTUM = 0.9
@@ -225,6 +226,8 @@ def build_models(cfg: EndTaskConfig) -> Tuple[VinceEncoder, nn.Module]:
     channels = encoder.output_channels
     if cfg.task == "classifier":
         return encoder, MultiLinearModel(channels, cfg.num_classes)
+    if cfg.task == "tracking":
+        return encoder, SiamFCTrackingModel(channels)
     return encoder, Kinetics400Model(channels, cfg.num_classes, cfg.lstm_hidden)
 
 
@@ -248,15 +251,34 @@ def init_end_task_state(seed: int, cfg: EndTaskConfig, optimizer: EndTaskOptimiz
                         optimizer=optimizer.make(encoder, decoder))
 
 
-def _extract(encoder: VinceEncoder, images, train: bool, frozen: bool):
-    """The pooled features: train mode with a gradient for a fine-tuned train
-    step (the running averages move); eval mode, no gradient, otherwise."""
+def _extract(encoder: VinceEncoder, images, train: bool, frozen: bool, spatial: bool = False):
+    """The pooled features (the backbone's spatial ones with ``spatial``):
+    train mode with a gradient for a fine-tuned train step (the running
+    averages move); eval mode, no gradient, otherwise."""
+    key = "spatial_features" if spatial else "extracted_features"
     if train and not frozen:
         encoder.train()
-        return encoder.extract_features(images)["extracted_features"]
+        return encoder.extract_features(images)[key]
     encoder.eval()
     with torch.no_grad():
-        return encoder.extract_features(images)["extracted_features"]
+        return encoder.extract_features(images)[key]
+
+
+def _normalized(cfg: EndTaskConfig, images_u8):
+    """Crops made on the host: ImageNet's normalisation only."""
+    return _finalize(images_u8.float() / 255.0, AugmentConfig()).to(cfg.compute_dtype)
+
+
+def _track(cfg: EndTaskConfig, state, batch, train: bool, reduce: bool):
+    """The exemplar forward, then the search forward (a fine-tuned train
+    step moves the running averages through both, in that order), the
+    SiamFC head and its loss and metrics."""
+    frozen = cfg.freeze_feature_extractor or not train
+    zf = _extract(state.encoder, _normalized(cfg, batch["exemplar"]), train, frozen, True)
+    xf = _extract(state.encoder, _normalized(cfg, batch["search"]), train, frozen, True)
+    out = tracking_losses(state.decoder(zf, xf)[..., 0], batch["labels"], reduce)
+    out["loss/total_loss"] = out["loss/siam_tracking_loss"]
+    return out
 
 
 def _decode(cfg: EndTaskConfig, decoder: nn.Module, features, labels,
@@ -287,7 +309,12 @@ def make_end_task_train_step(cfg: EndTaskConfig, train: bool = True, per_sample:
     and centre crop), eval-mode BatchNorm and no gradient, and changes
     nothing. Metrics are each head's ``loss/classifier_loss_{i}`` and
     ``classifier_accuracy_{i}`` and ``loss/total_loss``, the sum of the
-    losses."""
+    losses.
+
+    For tracking, ``batch`` holds uint8 ``exemplar`` [B, hz, wz, 3] and
+    ``search`` [B, hx, wx, 3] crops and float ``labels`` [B, hy, wy], the
+    response maps; the metrics are ``loss/siam_tracking_loss``,
+    ``loss/total_loss``, ``dist``, ``center_dist`` and ``mean_iou``."""
     if train and per_sample:
         raise ValueError("per_sample is for the eval step")
     _check_task(cfg)
@@ -295,21 +322,28 @@ def make_end_task_train_step(cfg: EndTaskConfig, train: bool = True, per_sample:
     tcfg = make_config(cfg.transform, cfg.image_size)
     group = cfg.num_frames if cfg.task == "kinetics" else 1
 
-    def train_step(state: EndTaskState, batch, seed: int = 0):
-        gen = _generator(batch["data"].device, seed, state.step, 0)
-        images = augment_batch(gen, batch["data"], tcfg, cfg.compute_dtype, train=True,
-                               group_size=group)
-        features = _extract(state.encoder, images, train=True,
-                            frozen=cfg.freeze_feature_extractor)
-        out = _decode(cfg, state.decoder, features, batch["labels"], reduce=True)
+    def _update(state: EndTaskState, out):
         state.optimizer.zero_grad()
         out["loss/total_loss"].backward()
         state.optimizer.step()
         state.step += 1
         return state, {k: v.detach() for k, v in out.items()}
 
+    def train_step(state: EndTaskState, batch, seed: int = 0):
+        if cfg.task == "tracking":
+            out = _track(cfg, state, batch, train=True, reduce=True)
+            return _update(state, out)
+        gen = _generator(batch["data"].device, seed, state.step, 0)
+        images = augment_batch(gen, batch["data"], tcfg, cfg.compute_dtype, train=True,
+                               group_size=group)
+        features = _extract(state.encoder, images, train=True,
+                            frozen=cfg.freeze_feature_extractor)
+        return _update(state, _decode(cfg, state.decoder, features, batch["labels"], reduce=True))
+
     @torch.no_grad()
     def eval_step(state: EndTaskState, batch, seed: int = 0) -> Dict[str, torch.Tensor]:
+        if cfg.task == "tracking":
+            return _track(cfg, state, batch, train=False, reduce=not per_sample)
         images = augment_batch(None, batch["data"], tcfg, cfg.compute_dtype, train=False)
         features = _extract(state.encoder, images, train=False, frozen=True)
         return _decode(cfg, state.decoder, features, batch["labels"], reduce=not per_sample)

@@ -28,7 +28,6 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from vince_tpu_torch.arg_parser import SIAMFC_BACKBONES
 from vince_tpu_torch.data import get_dataset
 from vince_tpu_torch.data.loader import PersistentDataLoader
 from vince_tpu_torch.data.npz_dataset import NPZDataset
@@ -71,8 +70,6 @@ def refused_flags(args) -> List[str]:
     if getattr(args, "pretrained_weights_path", ""):
         out.append("--pretrained-weights-path (ROADMAP.md §1 item 6, with item 10's "
                    "torch_convert)")
-    if args.backbone in SIAMFC_BACKBONES:
-        out.append(f"--backbone {args.backbone} (the tracking end task, ROADMAP.md §1 item 9b)")
     return out
 
 

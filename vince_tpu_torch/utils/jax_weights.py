@@ -157,11 +157,13 @@ _LSTM_HIDDEN_GATES = ("hi", "hf", "hg", "ho")
 
 def flax_decoder_to_state_dict(params: Dict) -> Dict[str, np.ndarray]:
     """An end-task decoder's flax tree → the port's names and layouts:
-    ``MultiLinearModel``'s ``classifier_{i}/{fc0,fc_out}``, and
+    ``MultiLinearModel``'s ``classifier_{i}/{fc0,fc_out}``,
     ``Kinetics400Model``'s ``LSTMCell_0`` (the gates' kernels, transposed and
     stacked in torch's order, and the hidden side's biases as ``bias_hh_l0``;
-    the input side has no bias) and ``fc``. Also maps an optimizer buffer of
-    that tree's shape."""
+    the input side has no bias) and ``fc``, and ``SiamFCTrackingModel``'s
+    ``exemplar_decoder`` and ``search_patch_decoder`` (1×1 kernels
+    [1, 1, C, 256] → weight [256, C, 1, 1], and the biases). Also maps an
+    optimizer buffer of that tree's shape."""
     out: Dict[str, np.ndarray] = {}
     for top, sub in params.items():
         if top == "LSTMCell_0":
@@ -207,10 +209,11 @@ def _group_buffers(inner) -> Dict[str, Any]:
 
 
 def load_jax_end_task_state(state, jax_state) -> None:
-    """Load a JAX ``EndTaskState`` with numpy leaves into the port's: the
-    encoder's weights and statistics, the decoder, the step, and each
-    optimizer group's buffers (SGD's trace; Adam's ``mu``, ``nu``) and update
-    count. The LSTM's ``bias_ih_l0``, which flax does not have, is zero."""
+    """Load a JAX ``EndTaskState`` with numpy leaves into the port's, for any
+    of the three tasks: the encoder's weights and statistics, the decoder, the
+    step, and each optimizer group's buffers (SGD's trace, as the tracking
+    task's groups hold it; Adam's ``mu``, ``nu``) and update count. The LSTM's
+    ``bias_ih_l0``, which flax does not have, is zero."""
     load_jax_variables(state.encoder, jax_state.encoder_params, jax_state.encoder_batch_stats)
     decoder = flax_decoder_to_state_dict(jax_state.decoder_params)
     if "lstm.bias_ih_l0" in state.decoder.state_dict():
