@@ -10,7 +10,8 @@ Phases:
      shapes of the training step (forward and gradient), and time the kernel,
      the plain version and one PyTorch library call computing the same function
      (K1 also at a queue of 262144); then hold the forward at a few shapes off
-     the main path (ragged ones);
+     the main path (ragged ones), and K1 at the queue shards of a distributed
+     step, timed;
   3. run the VINCE pretraining step (batch 128 = 32 videos x 4 frames, 224x224
      crops of 256x256 uint8 canvases, queue 65536, embeddings 128, bf16, fused
      InfoNCE queue kernel) for 2 warm-up and 5 timed steps, counting each
@@ -80,7 +81,22 @@ Phases:
      against the serial tracker's (float32, 1e-2 px), one f32 step of 16 pairs
      on the card against the CPU, ``fast_xcorr`` (forward and both gradients)
      at the run's shape on the card against the CPU, the peak memory, no
-     launch of any kernel.
+     launch of any kernel;
+ 12. multi-GPU pretraining over ``torch.distributed`` at a world of one: an
+     NCCL group of one rank (a ``TCPStore`` on 127.0.0.1) and a 1x1 mesh. The
+     eager distributed step with sync-BN, 5 steps in ``gather`` mode and 5 in
+     ``a2a`` mode (K1 1 and K2 26 launches a step), bit-identical (loss,
+     weights, running averages, momentum traces, queue) to phase 3's
+     one-device step from the same seed on the same batches under
+     deterministic cuDNN: every collective is the identity; the captured
+     distributed step against its eager form to phase 5's bounds, in both
+     modes, and 5 timed replays beside phase 5's one-device replays; K1 on
+     two halves of the queue merged as the queue branch merges shards,
+     against the unsharded loss and its gradient; the CLI with
+     ``--distributed`` and the three explicit flags, ``--sync-bn
+     --shuffle-mode a2a`` on phase 9's configuration, 8 iterations, its val
+     pass and a save, then a run without ``--distributed`` that restores the
+     checkpoint bit-identically.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -89,6 +105,7 @@ line is ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
 import argparse
 import contextlib
 import copy
+import dataclasses
 import gc
 import io
 import json
@@ -235,9 +252,9 @@ def compare_queue_logsumexp(k1, q, queue, tau):
             zip("mSW", got, ref, (1e-5, 1e-4, 1e-4), (1e-6, 1e-6, 1e-5))]
 
 
-def time_queue_logsumexp(k1, q, queue, tau):
-    """The kernel (whole and each launch), its plain version, the library call
-    and the bound at one shape, in ms."""
+def time_queue_logsumexp(k1, q, queue, tau, per_launch=True):
+    """The kernel (whole and, with ``per_launch``, each launch), its plain
+    version, the library call and the bound at one shape, in ms."""
     b, d = q.shape
     k = queue.shape[0]
 
@@ -248,16 +265,19 @@ def time_queue_logsumexp(k1, q, queue, tau):
     times = {"ms": time_ms(lambda: k1.queue_logsumexp_forward(q, queue, tau)),
              "plain_ms": time_ms(lambda: k1._reference_queue_logsumexp(q, queue, tau)),
              "library_ms": time_ms(library)}
-    split = launch_ms(lambda: k1.queue_logsumexp_forward(q, queue, tau))
-    times["partial_ms"], times["combine_ms"] = split["qlse_partial_kernel"], split[
-        "qlse_combine_kernel"]
+    launches = ""
+    if per_launch:
+        split = launch_ms(lambda: k1.queue_logsumexp_forward(q, queue, tau))
+        times["partial_ms"], times["combine_ms"] = split["qlse_partial_kernel"], split[
+            "qlse_combine_kernel"]
+        launches = " (launches: partial {partial_ms:.4f}, combine {combine_ms:.4f})".format(
+            **times)
     bytes_moved = 4 * (b * d + k * d + 2 * b + b * d)
     ops = 4 * b * k * d + b * k  # two products of 2*b*k*d, plus one exp per logit
     times["bound_ms"], by = bound(bytes_moved, ops, F32_FLOPS)
-    log("  times (cold L2): kernel {ms:.4f} ms (launches: partial {partial_ms:.4f}, combine "
-        "{combine_ms:.4f}), plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
-        "{bound_ms:.4f} ms".format(**times) + f" ({by}, f32), kernel/bound "
-        f"{times['ms'] / times['bound_ms']:.3f}")
+    log(f"  times (cold L2): kernel {times['ms']:.4f} ms{launches}, plain "
+        "{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {bound_ms:.4f} ms".format(**times)
+        + f" ({by}, f32), kernel/bound {times['ms'] / times['bound_ms']:.3f}")
     return times, by
 
 
@@ -646,7 +666,9 @@ def check_other_shapes(dev):
     C = 1152 and 2048 for K2, and the bottleneck of stage 4 at four times the
     width (C = 2048) through the module; odd N, H != W, C % 8 != 0, odd
     C, f32 and shapes that cross the tile's edges for K4 (forward, dx and dw);
-    ragged tiles, two column tiles and F that is no multiple of 8 for K3."""
+    ragged tiles, two column tiles and F that is no multiple of 8 for K3. K1
+    also at the queue shards of a distributed step, timed; returns those
+    times."""
     from vince_tpu_torch.models.resnet import Bottleneck
     from vince_tpu_torch.ops.kernels import conv_bn_kernel as k3
     from vince_tpu_torch.ops.kernels import depthwise_kernel as k4
@@ -662,6 +684,16 @@ def check_other_shapes(dev):
                     (5, 1, 128), (128, 4096, 64), (96, 3000, 256), (37, 1000, 72)]:
         log(f"K1 at q [{b},{d}], queue [{k},{d}]: chunking {k1._chunking(b, k, d, sms)}")
         compare_queue_logsumexp(k1, *queue_inputs(g, dev, b, k, d), 0.07)
+    # a rank's rows against its queue shard in a distributed step: data axes
+    # of 2 and 4 over 2 and 4 shards of 65536, and one data row over 2 shards
+    shard_times = {}
+    for b, k in [(64, 32768), (32, 16384), (128, 32768)]:
+        log(f"K1 at a queue shard: q [{b},128], queue [{k},128]: chunking "
+            f"{k1._chunking(b, k, 128, sms)}")
+        q, queue = queue_inputs(g, dev, b, k, 128)
+        compare_queue_logsumexp(k1, q, queue, 0.07)
+        shard_times[f"q [{b},128], queue [{k},128]"] = time_queue_logsumexp(
+            k1, q, queue, 0.07, per_launch=False)[0]
     # rows no multiple of the blocks; C that is no power of two; C above the
     # 512 channels that the main kernel keeps (rebuilt per F chunk); F split
     for m, c, f in [(200, 128, 256), (200, 384, 256), (130, 768, 128), (200, 1152, 384),
@@ -724,6 +756,7 @@ def check_other_shapes(dev):
         log(f"K3 at y_prev [{n},{h},{w},{c}], kernel [3,3,{c},{f}]")
         check_smem_count(k3, n, h, w, f)
         compare_conv_bn_forward(k3, conv_bn_inputs(g, dev, n, h, w, c, f))
+    return shard_times
 
 
 def profile_step(step, state, batch, path):
@@ -978,31 +1011,34 @@ def captured_calls(dev, step, state, steps, expected_per_step):
     return losses, capture_launches
 
 
-def run_captured(dev, backbone, kind="sgd", steps=5, timed=5, profile_path=None):
+def run_captured(dev, backbone, kind="sgd", steps=5, timed=5, profile_path=None, cfg=None,
+                 mesh=None):
     """The captured step against the eager step from two states made from
     seed 0, over ``steps`` batches (the warm-up calls, the capture, replays),
     with cuDNN held to its deterministic algorithms on both sides so that
     only the capture can part them; then, under the defaults, a step captured
     anew on a new state and ``timed`` replays. Returns the state of the timed
     graph (else of the compared one), its launches at the capture, and the
-    times."""
+    times. ``cfg`` and ``mesh`` (phase 12) replace the backbone's config and
+    the one-device step."""
     from vince_tpu_torch.solvers.vince_step import (
         WARMUP_STEPS, build_vince_optimizer, init_vince_state, make_train_step,
         make_train_step_fn)
 
     phase = TRAIN_PHASES[backbone]
-    cfg = train_config(backbone)
+    cfg = cfg or train_config(backbone)
     opt = build_vince_optimizer(0.03, kind)
-    log(f"captured train step: {backbone}, {kind.upper()} lr 0.03, the same shapes; "
-        f"{WARMUP_STEPS} eager warm-up calls, then the capture; against the eager step, "
+    log(f"captured train step: {backbone}, {kind.upper()} lr 0.03, the same shapes"
+        f"{'' if mesh is None else f', {mesh}, shuffle {cfg.shuffle_mode}, sync-BN {cfg.sync_bn}'}"
+        f"; {WARMUP_STEPS} eager warm-up calls, then the capture; against the eager step, "
         f"cuDNN deterministic on both sides")
     torch.backends.cudnn.deterministic = True
-    s_eager = init_vince_state(0, cfg, opt, device=dev)
-    s_graph = init_vince_state(0, cfg, opt, device=dev)
+    s_eager = init_vince_state(0, cfg, opt, device=dev, mesh=mesh)
+    s_graph = init_vince_state(0, cfg, opt, device=dev, mesh=mesh)
     init = {k: v.detach().clone() for k, v in s_eager.model.named_parameters()}
-    losses_g, capture_launches = captured_calls(dev, make_train_step(cfg, opt), s_graph, steps,
-                                                phase["per_step"])
-    eager = make_train_step_fn(cfg, opt)
+    losses_g, capture_launches = captured_calls(dev, make_train_step(cfg, opt, mesh=mesh),
+                                                s_graph, steps, phase["per_step"])
+    eager = make_train_step_fn(cfg, opt, mesh=mesh)
     loss_gaps = []
     for i, loss_g in enumerate(losses_g):
         _, m_e = eager(s_eager, make_batch(dev, seed=i), i)
@@ -1029,8 +1065,8 @@ def run_captured(dev, backbone, kind="sgd", steps=5, timed=5, profile_path=None)
 
     log(f"captured train step, timed: {backbone}, cuDNN's defaults (as the eager timing), "
         f"a new state and a new capture")
-    state = init_vince_state(0, cfg, opt, device=dev)
-    captured = make_train_step(cfg, opt)
+    state = init_vince_state(0, cfg, opt, device=dev, mesh=mesh)
+    captured = make_train_step(cfg, opt, mesh=mesh)
     captured_calls(dev, captured, state, WARMUP_STEPS + 1, phase["per_step"])
     batch = make_batch(dev)
     reset_counts()
@@ -2321,6 +2357,250 @@ def run_tracking(card, tmp, profile_path=None):
     return {f"end task {name}": launches}, result
 
 
+# phase 12: multi-GPU pretraining over torch.distributed at a world of one
+# process: an NCCL group of one rank, a 1x1 (data, queue) mesh, the ResNet50
+# step of phases 3-5 with sync-BN, every collective over the one rank
+DIST_TRAIN_STEPS = 5
+DIST_CLI_ITERATIONS = 8
+DIST_BACKEND = "nccl"  # the backend of CUDA tensors
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def start_world_of_one(dev):
+    """An NCCL process group of rank 0 in a world of 1 (a ``TCPStore`` on
+    127.0.0.1) and its 1x1 mesh."""
+    import torch.distributed as dist
+
+    from vince_tpu_torch.parallel.mesh import Mesh, MeshSpec
+
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    store = dist.TCPStore("127.0.0.1", free_port(), 1, is_master=True)
+    dist.init_process_group(DIST_BACKEND, store=store, rank=0, world_size=1)
+    return Mesh(MeshSpec(1, 1))
+
+
+def dist_config(mode):
+    return dataclasses.replace(train_config("ResNet50"), sync_bn=True, shuffle_mode=mode)
+
+
+def first_difference(dist_state, single_state):
+    """The name of the first tensor in which two states differ, or None."""
+    from vince_tpu_torch.utils.checkpoint import state_tree
+
+    def walk(prefix, a, b):
+        for k, v in b.items():
+            if isinstance(v, dict):
+                found = walk(f"{prefix}{k}/", a[k], v)
+                if found:
+                    return found
+            elif isinstance(v, torch.Tensor) and not torch.equal(a[k], v):
+                return prefix + k
+            elif not isinstance(v, torch.Tensor) and a[k] != v:
+                return prefix + k
+        return None
+
+    return walk("", state_tree(dist_state), state_tree(single_state))
+
+
+def run_distributed_eager(dev, mesh, steps=DIST_TRAIN_STEPS):
+    """The eager distributed step (sync-BN, then in ``gather`` and in ``a2a``
+    mode) against phase 3's one-device step from the same seed on the same
+    batches, cuDNN deterministic on both sides: at a world of one every
+    collective is the identity, so the losses, the weights, the running
+    averages, the momentum traces and the queue are bit-identical. Returns
+    the launches and the ms per step of each mode and of the one-device step."""
+    from vince_tpu_torch.solvers.vince_step import (
+        build_vince_optimizer, init_vince_state, make_train_step_fn)
+
+    opt = build_vince_optimizer(0.03)
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for mode in ("gather", "a2a"):
+            cfg = dist_config(mode)
+            log(f"phase 12, eager: {mesh}, NCCL, sync-BN, shuffle {mode}: {steps} steps against "
+                f"phase 3's one-device step (ResNet50 b=128 224x224, q=65536, bf16, fused "
+                f"InfoNCE + fold kernel), the same seed and batches, cuDNN deterministic")
+            s_dist = init_vince_state(0, cfg, opt, device=dev, mesh=mesh)
+            s_one = init_vince_state(0, train_config("ResNet50"), opt, device=dev)
+            step_dist = make_train_step_fn(cfg, opt, mesh=mesh)
+            step_one = make_train_step_fn(train_config("ResNet50"), opt)
+            # a first step each, outside the timing (the communicators' first use)
+            step_dist(s_dist, make_batch(dev, seed=100), 100)
+            step_one(s_one, make_batch(dev, seed=100), 100)
+
+            batches = [make_batch(dev, seed=i) for i in range(steps)]
+
+            def run(step, state):
+                times, losses = [], []
+                for i in range(steps):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    _, m = step(state, batches[i], i)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    losses.append(m["loss/total_loss"].item())
+                return times, losses
+
+            reset_counts()
+            ms, losses = {}, {}
+            ms["dist"], losses["dist"] = run(step_dist, s_dist)
+            launches = expect_counts(
+                f"{steps} distributed steps ({TRAIN_PHASES['ResNet50']['why']})",
+                {n: v * steps for n, v in TRAIN_PHASES["ResNet50"]["per_step"].items()})
+            ms["one"], losses["one"] = run(step_one, s_one)
+            for i, (a, b) in enumerate(zip(losses["dist"], losses["one"])):
+                log(f"    step {i}: loss distributed {a!r}, one device {b!r}")
+            differs = first_difference(s_dist, s_one)
+            if losses["dist"] != losses["one"] or differs:
+                fail(f"phase 12, {mode}: the world-of-one distributed step is not bit-identical "
+                     f"to the one-device step: losses {losses}, first differing tensor "
+                     f"{differs}")
+            med = {k: float(np.median(v)) for k, v in ms.items()}
+            each = ", ".join(f"{t:.3f}" for t in ms["dist"])
+            log(f"  {mode}: losses, weights, running averages, momentum traces and queue "
+                f"bit-identical to the one-device step after {steps} steps; eager ms/step "
+                f"distributed {med['dist']:.3f} (each {each}), one device {med['one']:.3f}")
+            out[mode] = {"launches": launches, "ms": med}
+            del s_dist, s_one
+            free_cuda()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def run_queue_shards(dev):
+    """K1 on the two halves of the queue ([128, 32768] twice), given to
+    ``sharded_multi_pair_infonce`` as two shards of one process: its merge of
+    the shards' partials (a max of their maxes, a sum of their exp sums, then
+    the queue group's pmax and psum, here of one member) is the one the ranks
+    of a queue axis run. Against the unsharded loss and its gradient w.r.t.
+    q: loss at rtol 1e-5, gradient at 1e-4. Returns the launches."""
+    from vince_tpu_torch.ops.sharded_infonce import sharded_multi_pair_infonce
+
+    tau = 0.07
+    g = torch.Generator(device=dev).manual_seed(12)
+    q, queue = queue_inputs(g, dev, BATCH_SIZE, 65536, 128)
+    keys, _ = queue_inputs(g, dev, BATCH_SIZE, 1, 128)
+    groups = torch.arange(BATCH_SIZE, device=dev) // 4
+    mask = groups[:, None] == groups[None, :]
+    log("phase 12, two queue shards in one process: K1 on q [128,128] x queue [32768,128] "
+        "twice, merged by a max and a sum, against the unsharded fused loss")
+    q_one = q.clone().requires_grad_(True)
+    ref = sharded_multi_pair_infonce(q_one, keys, mask, tau, queue_shard=queue,
+                                     use_fused_queue_kernel=True)["dist"]
+    ref.backward()
+    reset_counts()
+    q_two = q.clone().requires_grad_(True)
+    loss = sharded_multi_pair_infonce(q_two, keys, mask, tau, queue_shard=list(queue.chunk(2)),
+                                      use_fused_queue_kernel=True)["dist"]
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = expect_counts("two queue shards", {"queue_logsumexp": 2})
+    compare("two-shard loss", loss.detach().reshape(1), ref.detach().reshape(1), 1e-5, 0)
+    compare("two-shard dL/dq", q_two.grad, q_one.grad, 1e-4, 1e-5)
+    return launches
+
+
+def run_distributed_cli(card, tmp):
+    """``solver_runner.main`` with ``--distributed`` (the three explicit flags,
+    one process), sync-BN and the a2a shuffle on phase 9's configuration, for
+    8 iterations, its val pass and a save; then a run without
+    ``--distributed`` restores the checkpoint, bit-identical to the file."""
+    from vince_tpu_torch import arg_parser, solver_runner
+    from vince_tpu_torch.solvers.vince_solver import VinceSolver
+    from vince_tpu_torch.utils.checkpoint import state_tree
+
+    base = CLI_ARGV + ["--title", "dist", "--description", "resnet50", "--base-logdir", tmp,
+                       "--epochs", "1", "--iterations-per-epoch", str(DIST_CLI_ITERATIONS),
+                       "--save-frequency", str(DIST_CLI_ITERATIONS), "--sync-bn",
+                       "--shuffle-mode", "a2a"]
+    dist_flags = ["--distributed", "--coordinator-address", f"127.0.0.1:{free_port()}",
+                  "--num-processes", "1", "--process-id", "0"]
+    log(f"phase 12, CLI: python -m vince_tpu_torch.solver_runner {' '.join(base[:-4])} "
+        f"{' '.join(base[-4:])} {' '.join(dist_flags)}")
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with CliRecord() as rec, contextlib.redirect_stdout(Tee(sys.stdout)) as out:
+        solver = solver_runner.main(base + dist_flags)
+    result = {"wall_s": time.perf_counter() - t0,
+              "peak_gib": torch.cuda.max_memory_reserved() / 2**30}
+    if f"distributed: process 0/1, backend {DIST_BACKEND}" not in out.getvalue():
+        fail(f"phase 12: the CLI did not start its {DIST_BACKEND} group")
+    if (solver.cfg.data_axis_size, solver.cfg.queue_axis_size, solver.cfg.sync_bn,
+            solver.cfg.shuffle_mode) != (1, 1, True, "a2a") or solver.mesh is None:
+        fail(f"phase 12: the CLI built {solver.cfg} on {solver.mesh}")
+    launches = check_cli_calls("distributed CLI", rec, "ResNet50", DIST_CLI_ITERATIONS, 1)
+    result["laps"] = report_laps("distributed CLI", rec, card)
+    (val,) = rec.of("run_val")
+    result["val"] = (val["batches"], val["seconds"])
+    steps = sorted(os.listdir(solver.ckpt.checkpoint_dir))
+    log(f"  val pass: {val['batches']} batches in {val['seconds']:.3f} s; checkpoints {steps}; "
+        f"peak memory reserved {result['peak_gib']:.3f} GiB; the run {result['wall_s']:.1f} s "
+        f"wall; card {card}")
+    if steps != [str(DIST_CLI_ITERATIONS)]:
+        fail(f"phase 12: expected the checkpoint of step {DIST_CLI_ITERATIONS}, found {steps}")
+    del solver, rec
+    free_cuda()
+    log("phase 12, restore: the solver without --distributed restores the distributed "
+        "run's checkpoint; its state against the file")
+    with contextlib.redirect_stdout(Tee(sys.stdout)) as out:
+        check = VinceSolver(arg_parser.parse_args(base + ["--epochs", "2"]))
+    try:
+        if f"Restored step {DIST_CLI_ITERATIONS}" not in out.getvalue() or check.mesh is not None:
+            fail(f"phase 12: no 'Restored step {DIST_CLI_ITERATIONS}' on one device")
+        tree_equal("state", state_tree(check.state), check.ckpt.restore_raw(DIST_CLI_ITERATIONS))
+        log("  restored state bit-identical to the file")
+    finally:
+        check.end()
+    del check
+    free_cuda()
+    return launches, result
+
+
+def run_distributed(dev, card, tmp, captured_ms):
+    """Phase 12: the world-of-one NCCL group, the eager and captured
+    distributed steps, two queue shards in one process, then the
+    ``--distributed`` CLI (which starts and ends its own group)."""
+    import torch.distributed as dist
+
+    paths, result = {}, {}
+    mesh = start_world_of_one(dev)
+    try:
+        eager = run_distributed_eager(dev, mesh)
+        for mode, r in eager.items():
+            paths[f"phase 12 eager {mode}, {DIST_TRAIN_STEPS} steps"] = r["launches"]
+        result["eager"] = {mode: r["ms"] for mode, r in eager.items()}
+        # a failed capture raises (naming ROADMAP.md §1 item 8c) and fails the phase;
+        # the states go at once: their gradients hold their graph's memory pool
+        gather = run_captured(dev, "ResNet50", timed=0, cfg=dist_config("gather"), mesh=mesh)[1]
+        free_cuda()
+        a2a = run_captured(dev, "ResNet50", cfg=dist_config("a2a"), mesh=mesh)[1]
+        free_cuda()
+        paths["phase 12 captured gather (at the capture)"] = gather["capture_launches"]
+        paths["phase 12 captured a2a (at the capture)"] = a2a["capture_launches"]
+        result["captured"] = {"ms_per_step": a2a["ms_per_step"], "peak_gib": a2a["peak_gib"],
+                              "loss_gap": max(gather["loss_gap"], a2a["loss_gap"]),
+                              "update_gap": max(gather["update_gap"], a2a["update_gap"])}
+        log(f"phase 12, captured a2a + sync-BN: {a2a['ms_per_step']:.3f} ms/step against "
+            f"phase 5's one-device {captured_ms:.3f} in this call: the collectives at a "
+            f"world of one cost {a2a['ms_per_step'] - captured_ms:.3f} ms/step; card {card}")
+        paths["phase 12 two queue shards"] = run_queue_shards(dev)
+    finally:
+        dist.destroy_process_group()
+    paths["phase 12 CLI --distributed"], result["cli"] = run_distributed_cli(card, tmp)
+    return paths, result
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--kernels-only", action="store_true",
@@ -2367,7 +2647,7 @@ def run_phases(args, dev, card, tmp):
     """Phases 2-11, then the result lines."""
     kernels = [check_queue_logsumexp(dev), check_affine_relu_dot_moments(dev),
                check_affine_conv3x3_stats(dev), *check_depthwise_conv(dev)]
-    check_other_shapes(dev)
+    kernels[0]["at_queue_shards"] = check_other_shapes(dev)
     if not args.kernels_only:
         # each path is driven with the counts set to 0 just before its timed
         # steps and read just after; a kernel's launches are summed over the paths
@@ -2393,6 +2673,9 @@ def run_phases(args, dev, card, tmp):
         paths.update(end_paths)
         tracking_paths, tracking = run_tracking(card, tmp, args.profile)
         paths.update(tracking_paths)
+        dist_paths, distributed = run_distributed(dev, card, tmp,
+                                                  times["ResNet50"][1]["ms_per_step"])
+        paths.update(dist_paths)
         for k in kernels:
             k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items() if k["name"] in n}
             k["launches"] = sum(k["launches_by_path"].values())
@@ -2439,6 +2722,20 @@ def run_phases(args, dev, card, tmp):
             f"card/CPU at the run's shape {tracking['xcorr'][0]}; peak reserved "
             f"{tracking['peak_gib']:.3f} GiB; train {tracking['train_s']:.1f} s, with the eval "
             f"{tracking['wall_s']:.1f} s wall; kernel launches {tracking['launches']}; card {card}")
+        captured = distributed["captured"]
+        laps = distributed["cli"]["laps"]
+        log("phase 12 (world of one, NCCL, sync-BN): eager ms/step " + ", ".join(
+            f"{mode} {r['dist']:.3f} against one device {r['one']:.3f}"
+            for mode, r in distributed["eager"].items())
+            + f"; captured a2a {captured['ms_per_step']:.3f} ms/step (peak "
+            f"{captured['peak_gib']:.3f} GiB) against phase 5's "
+            f"{times['ResNet50'][1]['ms_per_step']:.3f}; captured against eager: loss gap "
+            f"{captured['loss_gap']:.3e}, update gap {captured['update_gap']:.3e}"
+            + "; CLI " + ", ".join(
+                f"{m} {laps[m][0]:.3f} ms ({laps[m][1]:.3f}-{laps[m][2]:.3f})" for m in LAPS)
+            + f", {laps['frames_per_s']:.2f} frames/s, peak reserved "
+            f"{distributed['cli']['peak_gib']:.3f} GiB, val (batches, s) "
+            f"{distributed['cli']['val']}; card {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -158,8 +158,8 @@ def test_key_prefill_matches_jax_and_leaves_state(setup, monkeypatch):
     images; the train-mode forward of the key encoder drops its statistics."""
     monkeypatch.setattr(jvs, "augment_batch",
                         lambda rng, images, cfg, **kw: images.astype(kw["dtype"]))
-    monkeypatch.setattr(tvs, "augment_batch",
-                        lambda gen, images, cfg, dtype=torch.float32, train=True: images.to(dtype))
+    monkeypatch.setattr(tvs, "apply_augment",
+                        lambda images, draws, cfg, dtype=torch.float32: images.to(dtype))
     images = np.random.RandomState(5).randn(BATCH, SIZE, SIZE, 3).astype(np.float32)
     e_j = jvs.make_key_prefill_fn(setup["cfg_j"], setup["mesh"], 0)(
         setup["state_j"], jnp.asarray(images), jax.random.PRNGKey(0))

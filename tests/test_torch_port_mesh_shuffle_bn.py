@@ -1,0 +1,26 @@
+"""Shuffled BN across ranks in the port's train step, on a 2 x 1 mesh of
+gloo ranks against ``vince_tpu``'s ``shard_map`` step on 2 virtual devices: a
+ResNet18 with BatchNorm (per-rank statistics, so the key shuffle across the
+data axis decides them), the keys moved by the gather or by the balanced
+all-to-all (JAX's sigma and tau fed to both). 3 steps; the metrics, the query
+encoder's weights and BatchNorm running averages, and the queue's inserted
+rows, at JAX's own tolerances (metrics rtol 2e-4, atol 2e-5; weights 1e-3,
+1e-5). Sync-BN on the mesh is ``test_torch_port_mesh_sync_bn_step.py``."""
+
+import pytest
+
+from torch_port_mesh_common import assert_run_equal, run_meshes
+
+PER_RANK = {"gather": dict(shuffle_mode="gather"), "a2a": dict(shuffle_mode="a2a")}
+
+
+@pytest.fixture(scope="module", params=list(PER_RANK))
+def per_rank(request, cpu_devices):
+    return request.param, run_meshes([(2, 1)], PER_RANK[request.param], single=False)[0]
+
+
+def test_shuffled_bn_step_equals_jax(per_rank):
+    mode, by_mesh = per_rank
+    ref, ranks = by_mesh[2, 1]
+    for r, got in enumerate(ranks):
+        assert_run_equal(got, ref, what=f"{mode} rank {r}")

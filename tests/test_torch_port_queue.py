@@ -1,5 +1,5 @@
-"""The port's queue (enqueue with wraparound, source tags, saturating fill
-counter) and EMA update against ``vince_tpu.ops.queue`` / ``ops.ema``."""
+"""The port's queue (``enqueue_sharded`` of one shard: the insert with
+wraparound, source tags, saturating fill counter) and EMA update against ``vince_tpu.ops.queue`` / ``ops.ema``."""
 
 import jax
 import jax.numpy as jnp
@@ -25,7 +25,7 @@ def test_enqueue_wraparound_matches_jax(batch):
     for i in range(5):  # wraps around at least once, and saturates total
         items = rng.randn(batch, d).astype(np.float32)
         js = jax_queue.enqueue(js, jnp.asarray(items), i)
-        ts = torch_queue.enqueue(ts, torch.from_numpy(items), i)
+        ts = torch_queue.enqueue_sharded(ts, torch.from_numpy(items), i)
         np.testing.assert_array_equal(ts.vectors.numpy(), np.asarray(js.vectors))
         np.testing.assert_array_equal(ts.sources.numpy(), np.asarray(js.sources))
         # the pointers are int32 0-dim tensors, as in JAX; the host count mirrors total

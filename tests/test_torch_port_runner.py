@@ -2,8 +2,8 @@
 ``--test-first``, saves at the epoch boundaries, a finished run that trains
 nothing more, a resume when ``--epochs`` grows, and a crash that saves and
 exits 1. Beside it: the prefill's draws per call, the jigsaw warm-up's
-both-sides step, the flags the port refuses, and the end-task solvers it
-builds."""
+both-sides step, the flags the port refuses, the multi-GPU flags on one
+process, and the end-task solvers it builds."""
 
 import os
 
@@ -13,6 +13,7 @@ import torch
 
 from vince_tpu_torch import arg_parser
 from vince_tpu_torch import solver_runner
+from vince_tpu_torch.parallel import multihost
 from vince_tpu_torch.solvers.vince_solver import VinceSolver
 
 
@@ -173,15 +174,41 @@ def test_jigsaw_warmup_builds_the_both_sides_step(tmp_path, sides):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--mesh-data-size", "2"], "item 8"), (["--pytorch-gpu-ids", "0,1"], "item 8"),
-    (["--distributed"], "item 8"), (["--sync-bn"], "item 8"),
-    (["--shuffle-mode", "a2a"], "item 8"), (["--remat"], "item 5"),
-    (["--pretrained-weights-path", "w.pt"], "item 6"), (["--use-imagenet-weights"], "item 6"),
-    (["--native-decode"], "item 6")])
+    (["--remat"], "item 5"), (["--pretrained-weights-path", "w.pt"], "item 6"),
+    (["--use-imagenet-weights"], "item 6"), (["--native-decode"], "item 6")])
 def test_flags_of_what_is_not_ported_are_refused(tmp_path, extra, item):
     args = arg_parser.parse_args(_argv(tmp_path, *extra))
     with pytest.raises(ValueError, match=f"ROADMAP.md §1 {item}"):
         VinceSolver(args)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--mesh-data-size", "2"], ["--pytorch-gpu-ids", "0,1"], ["--distributed"], ["--sync-bn"],
+    ["--shuffle-mode", "a2a"]], ids=lambda extra: extra[0])
+def test_multi_gpu_flags_build_the_jax_config(tmp_path, monkeypatch, capsys, extra):
+    """The flags of a multi-GPU run, on one process: a data axis of 2 is
+    clamped to the one process present, as JAX clamps it to the devices;
+    ``--distributed`` without a group to join raises
+    ``multihost.initialize``'s error for partial flags; ``--sync-bn`` and
+    ``--shuffle-mode a2a`` reach the step's config."""
+    args = arg_parser.parse_args(_argv(tmp_path, "--disable-dataloader", "--no-restore", *extra))
+    if extra == ["--distributed"]:
+        for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+            monkeypatch.delenv(name, raising=False)
+        with pytest.raises(ValueError, match="manual clusters need all three of "
+                                             "--coordinator-address, --num-processes"):
+            multihost.initialize(args)
+        return
+    solver = VinceSolver(args)
+    try:
+        cfg = solver.cfg
+        assert solver.mesh is None and (cfg.data_axis_size, cfg.queue_axis_size) == (1, 1)
+        if extra[0] in ("--mesh-data-size", "--pytorch-gpu-ids"):
+            assert "--mesh-data-size 2 clamped to 1" in capsys.readouterr().out
+        assert cfg.sync_bn == (extra == ["--sync-bn"])
+        assert cfg.shuffle_mode == ("a2a" if extra[0] == "--shuffle-mode" else "gather")
+    finally:
+        solver.end()
 
 
 def test_end_task_solvers_and_a_missing_gpu_are_refused(tmp_path):

@@ -7,11 +7,13 @@ Where the port differs:
   device the solver raises rather than fall back);
 - ``--dw-kind pallas`` selects the port's depthwise kernel (``dw_kind="kernel"``)
   and ``--fold-kernel`` its fused affine→ReLU→1×1 dot kernel;
+- ``--distributed`` starts one process per GPU over ``torch.distributed``
+  (``nccl``; ``gloo`` with ``--platform cpu``), from the three explicit flags
+  or from ``torchrun``'s environment;
 - the flags of what the port does not have yet parse, and the solver refuses
-  them when it is built, naming the ``ROADMAP.md`` item that ports them: a
-  device mesh larger than 1×1, ``--distributed``, ``--sync-bn``,
-  ``--shuffle-mode a2a``, ``--remat``, ``--pretrained-weights-path``,
-  ``--use-imagenet-weights`` and ``--native-decode``.
+  them when it is built, naming the ``ROADMAP.md`` item that ports them:
+  ``--remat``, ``--pretrained-weights-path``, ``--use-imagenet-weights`` and
+  ``--native-decode``.
 
 The end-task solvers (``EndTaskImagenetSolver``, ``EndTaskSunSceneSolver``,
 ``EndTaskKinetics400Solver``, ``EndTaskTrackingSolver``) take the same flags,
@@ -172,12 +174,12 @@ def build_parser() -> argparse.ArgumentParser:
     # devices
     parser.add_argument(
         "--mesh-data-size", type=int, default=0,
-        help="Data-parallel devices (0 = all). The port runs on one GPU: more "
-        "than 1 is refused (ROADMAP.md §1 item 8).",
+        help="Data-parallel devices (0 = all the processes a queue row leaves); "
+        "clamped to the processes of the run.",
     )
     parser.add_argument(
         "--mesh-queue-size", type=int, default=1,
-        help="Devices the queue is sharded over; more than 1 is refused.",
+        help="Devices the queue is sharded over (with --distributed).",
     )
     parser.add_argument(
         "--pytorch-gpu-ids", type=str, default=None,
@@ -190,7 +192,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--distributed", action="store_true",
-        help="Multi-process run (refused: ROADMAP.md §1 item 8).",
+        help="Multi-process run, one process per GPU: the three flags below, or "
+        "torchrun's environment.",
     )
     parser.add_argument("--coordinator-address", type=str, default="",
                         help="host:port of process 0 (with --distributed).")
@@ -213,8 +216,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--shuffle-mode", type=str, default="gather", choices=["gather", "a2a"],
-        help="How shuffled BN scatters the keys over devices; one GPU "
-        "permutes in place, and 'a2a' is refused (ROADMAP.md §1 item 8).",
+        help="How shuffled BN scatters the keys over the data axis: 'gather' (the "
+        "global batch on every device) or 'a2a' (a balanced all-to-all, 1/d the "
+        "traffic; the per-device batch divisible by the data axis).",
     )
     parser.add_argument(
         "--jitter-order", default="torchvision", choices=["torchvision", "fixed"],
@@ -268,7 +272,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--sync-bn", action="store_true",
-        help="BN statistics synced across devices (refused: ROADMAP.md §1 item 8).",
+        help="BN statistics summed over the data axis, not per device.",
     )
     parser.add_argument(
         "--pretrained-weights-path", type=str, default="",

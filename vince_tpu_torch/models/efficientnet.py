@@ -21,6 +21,7 @@ project conv's weights, one weight matrix per sample.
 
 import functools
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -168,11 +169,12 @@ class MBConv(nn.Module):
 
     def __init__(self, cin: int, filters: int, expand_ratio: int, kernel: int, stride: int,
                  se_ratio: float = 0.25, fold: bool = False, dw_kind: str = "conv",
-                 se_kind: str = "mul", dtype=torch.float32):
+                 se_kind: str = "mul", dtype=torch.float32, axis_name: Optional[str] = None):
         super().__init__()
         if se_kind not in ("mul", "fold"):
             raise ValueError(f"se_kind={se_kind!r}; choices: mul, fold")
-        bn = functools.partial(BatchNorm, momentum=BN_MOMENTUM, eps=BN_EPSILON)
+        bn = functools.partial(BatchNorm, momentum=BN_MOMENTUM, eps=BN_EPSILON,
+                               axis_name=axis_name)
         expanded = cin * expand_ratio
         if expand_ratio != 1:
             self._expand_conv = Conv1x1(cin, expanded)
@@ -209,14 +211,17 @@ class EfficientNet(nn.Module):
     """Feature-extractor EfficientNet: NHWC images → [N, H/32, W/32, C_head]."""
 
     def __init__(self, variant: str = "b0", bn_fold: str = "none", dw_kind: str = "conv",
-                 se_kind: str = "mul", dtype=torch.float32, in_channels: int = 3):
+                 se_kind: str = "mul", dtype=torch.float32, in_channels: int = 3,
+                 axis_name: Optional[str] = None):
         super().__init__()
         if bn_fold not in ("none", "expand", "all"):
             raise ValueError(f"bn_fold={bn_fold!r}; choices: none, expand, all")
         width, depth = _SCALING[variant]
         self.dtype = dtype
         self.fold = bn_fold != "none"  # "all" behaves like "expand" here
-        bn = functools.partial(BatchNorm, momentum=BN_MOMENTUM, eps=BN_EPSILON)
+        # axis_name: the mesh axis that train-mode statistics are summed over
+        bn = functools.partial(BatchNorm, momentum=BN_MOMENTUM, eps=BN_EPSILON,
+                               axis_name=axis_name)
         cin = round_filters(32, width)
         self._conv_stem = StemConv(in_channels, cin)
         self._bn0 = bn(cin)
@@ -226,7 +231,7 @@ class EfficientNet(nn.Module):
             for r in range(round_repeats(repeats, depth)):
                 blocks.append(MBConv(cin, out_ch, expand, kernel, stride if r == 0 else 1,
                                      fold=self.fold, dw_kind=dw_kind, se_kind=se_kind,
-                                     dtype=dtype))
+                                     dtype=dtype, axis_name=axis_name))
                 cin = out_ch
         self._blocks = nn.ModuleList(blocks)
         self.output_channels = round_filters(1280, width)

@@ -25,6 +25,15 @@ running statistics) in every norm's place. It has no batch statistics to
 fold, so ``bn_fold`` is ignored and the blocks run unfolded, without K2, as
 in JAX.
 
+``axis_name`` (the mesh's ``DATA_AXIS``, for ``--sync-bn``) makes every
+train-mode statistics site sum its moments over that axis of the bound mesh
+(``parallel/mesh.py``) through the differentiable ``psum``, as the JAX
+modules do with theirs: ``BatchNorm`` the mean and the mean of squares
+(flax's ``pmean``), ``folded_dot_bn`` the input's Σx, xᵀx and count, and
+``fused_bn_relu_folded_dot`` Σy and Σy² of its input, then K2's s1 and s2, so
+that K2's backward receives the summed cotangents. Outside a bound mesh the
+axis has one member and nothing is summed.
+
 ``stem_kind`` chooses the stem's arithmetic, not its math: "s2d" runs the
 7×7 stride-2 convolution in the compute dtype (the JAX module casts its
 filter to it), "conv7" in float32, as flax promotes the images to the f32
@@ -42,6 +51,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from vince_tpu_torch.ops.kernels import folded_dot_kernel
+from vince_tpu_torch.parallel.collectives import group_size, psum
+from vince_tpu_torch.parallel.mesh import axis_group
 
 
 def _lecun_normal_(t: torch.Tensor, fan_in: int, generator=None):
@@ -114,13 +125,14 @@ class BatchNorm(nn.Module):
     """flax BatchNorm semantics over the last (channel) dimension."""
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5,
-                 zero_scale: bool = False):
+                 zero_scale: bool = False, axis_name: Optional[str] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(features))
         self.bias = nn.Parameter(torch.empty(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.momentum, self.eps, self.zero_scale = momentum, eps, zero_scale
+        self.axis_name = axis_name  # the mesh axis train-mode statistics are summed over
         self.record_stats = True  # train mode: update the running averages
 
     def reset_parameters(self, generator=None):
@@ -146,8 +158,15 @@ class BatchNorm(nn.Module):
         if self.training:
             x32 = x.float()
             dims = tuple(range(x.dim() - 1))
-            mean = x32.mean(dim=dims)
-            var = torch.clamp((x32 * x32).mean(dim=dims) - mean * mean, min=0.0)
+            # one [2, C] tensor of the moments whether or not they are summed
+            # over the axis: the backward then runs its sums in one order, and
+            # a world of one gives the single device's bits
+            moments = torch.stack([x32.mean(dim=dims), (x32 * x32).mean(dim=dims)])
+            group = axis_group(self.axis_name)
+            if group is not None:
+                moments = psum(moments, group) / group_size(group)
+            mean, mean2 = moments.unbind()
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             mean, var = self.batch_stats(mean, var)
         else:
             mean, var = self.batch_stats(None, None)
@@ -223,7 +242,11 @@ def folded_dot_bn(x, conv: Conv1x1, bn: BatchNorm, dtype, *,
     mu = var = None
     if bn.training:
         x2 = x.reshape(-1, x.shape[-1]).float()
-        mu, var = _moment_stats(x2.sum(dim=0), x2.T @ x2, w, x2.shape[0])
+        s1, s2, n = x2.sum(dim=0), x2.T @ x2, x2.shape[0]
+        group = axis_group(bn.axis_name)
+        if group is not None:
+            s1, s2, n = psum(s1, group), psum(s2, group), n * group_size(group)
+        mu, var = _moment_stats(s1, s2, w, n)
     a, b = _fold_affine(bn, mu, var)
     y = x.to(dtype) @ (w * a[None, :]).to(dtype) + b.to(dtype)
     if residual is not None:
@@ -244,11 +267,17 @@ def fused_bn_relu_folded_dot(y, in_bn: BatchNorm, conv: Conv1x1, bn: BatchNorm, 
     features = w.shape[1]
     if in_bn.training:
         y32 = y.reshape(-1, c).float()
-        mu2 = y32.sum(dim=0) / n
-        var2 = torch.clamp((y32 * y32).sum(dim=0) / n - mu2 * mu2, min=0.0)
+        s1y, s2y = y32.sum(dim=0), (y32 * y32).sum(dim=0)
+        group = axis_group(in_bn.axis_name)
+        if group is not None:
+            s1y, s2y, n = psum(s1y, group), psum(s2y, group), n * group_size(group)
+        mu2 = s1y / n
+        var2 = torch.clamp(s2y / n - mu2 * mu2, min=0.0)
         a2, b2 = _fold_affine(in_bn, mu2, var2)
         out_raw, s1, s2 = folded_dot_kernel.affine_relu_dot_moments(
             y.reshape(-1, c).to(dtype), a2, b2, w)
+        if group is not None:
+            s1, s2 = psum(s1, group), psum(s2, group)
         a3, b3 = _fold_affine(bn, *_moment_stats(s1, s2, w, n))
         out = out_raw.reshape(*y.shape[:-1], features)
     else:
@@ -365,11 +394,13 @@ class ResNet(nn.Module):
     def __init__(self, stage_sizes: Sequence[int], block_cls, num_filters: int = 64,
                  bn_fold: str = "none", fold_kernel: bool = False, dtype=torch.float32,
                  in_channels: int = 3, norm_kind: str = "batchnorm", stem_kind: str = "conv7",
-                 replace_stride_with_dilation: Sequence[bool] = (False, False, False)):
+                 replace_stride_with_dilation: Sequence[bool] = (False, False, False),
+                 axis_name: Optional[str] = None):
         super().__init__()
         if bn_fold not in ("none", "expand", "all"):
             raise ValueError(f"bn_fold={bn_fold!r}; choices: none, expand, all")
-        norms = {"batchnorm": BatchNorm, "groupnorm": GroupNorm}
+        norms = {"batchnorm": functools.partial(BatchNorm, axis_name=axis_name),
+                 "groupnorm": GroupNorm}
         stems = {"conv7": StemConv7, "s2d": StemConvS2D}
         if norm_kind not in norms or stem_kind not in stems:
             raise ValueError(f"norm_kind={norm_kind!r}, stem_kind={stem_kind!r}; choices: "

@@ -1,6 +1,6 @@
 """Multi-positive InfoNCE against the batch keys and the negative queue
-(counterpart of ``vince_tpu/ops/sharded_infonce.py``, single-device branch:
-the queue is not sharded, so there is no cross-device max or sum).
+(counterpart of ``vince_tpu/ops/sharded_infonce.py``), with the queue whole
+on one device or sharded over the ``queue`` axis of a mesh.
 
 Numerics follow the JAX function exactly: the row max over batch and queue,
 detached; ``NEG_INF`` on masked positives; one denominator per positive with
@@ -8,13 +8,24 @@ the other positives left out; metrics on the raw similarities. With
 ``use_fused_queue_kernel`` the queue sweep is ``queue_logsumexp`` (K1): its m
 is detached and ``exp(m − M)·S`` carries the gradient through S only, which is
 exact because the product does not depend on m.
+
+With ``queue_group`` each rank scores its shard of the queue, and the shards'
+partials are merged as a streamed softmax: the row max and the raw-similarity
+max through ``pmax``, the queue's ``exp`` sum through ``psum`` over the
+group. ``queue_shard`` may also be a sequence of shards held by this
+process: their partials go through the same merge, by a local max and sum
+before the group's. Gradient contract under the sharding: callers scale the rank's loss by
+1/queue_axis_size and sum the gradients over the queue group
+(``solvers/vince_step.py``); the psum's backward, a psum of the cotangent,
+then adds the shards' cotangents up to exactly one logical gradient.
 """
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 
 from vince_tpu_torch.ops.kernels.infonce_kernel import queue_logsumexp
+from vince_tpu_torch.parallel.collectives import pmax, psum
 
 NEG_INF = -(2.0 ** 30)
 
@@ -24,9 +35,11 @@ def sharded_multi_pair_infonce(
     k_global: torch.Tensor,  # [Bg, D] key embeddings
     pos_mask: torch.Tensor,  # [b, Bg] bool — positives within the key block
     temperature: float,
-    queue_shard: Optional[torch.Tensor] = None,  # [K, D] negative queue
+    # [K/mq, D] this rank's queue shard, or a sequence of shards this process holds
+    queue_shard: Union[None, torch.Tensor, Sequence[torch.Tensor]] = None,
     batch_neg_mask: Optional[torch.Tensor] = None,  # [b, Bg] bool; default ~pos_mask
     use_fused_queue_kernel: bool = False,
+    queue_group=None,  # the process group the queue is sharded over; None: whole
 ) -> Dict[str, torch.Tensor]:
     maskf = pos_mask.float()
     inv_maskf = 1.0 - maskf if batch_neg_mask is None else batch_neg_mask.float()
@@ -35,20 +48,31 @@ def sharded_multi_pair_infonce(
     logits_batch = sims_batch / temperature
     rows = q_local.shape[0]
 
-    kernel_partials = None
-    if queue_shard is not None and use_fused_queue_kernel:
-        m_loc, s_loc = queue_logsumexp(q_local, queue_shard, temperature)
-        kernel_partials = (m_loc[:, None], s_loc[:, None])
-        m_queue = kernel_partials[0].detach()
-        s_queue_max_raw = m_queue * temperature
-    elif queue_shard is not None:
-        sims_queue = q_local.float() @ queue_shard.float().T
-        logits_queue = sims_queue / temperature
-        m_queue = logits_queue.max(dim=-1, keepdim=True).values.detach()
-        s_queue_max_raw = sims_queue.max(dim=-1, keepdim=True).values.detach()
-    else:
+    shards = [queue_shard] if isinstance(queue_shard, torch.Tensor) else queue_shard or []
+
+    def merged(parts, reduce, collective):
+        # the shards of this process, then those of the group
+        x = parts[0] if len(parts) == 1 else reduce(torch.stack(parts), dim=0)
+        return collective(x, queue_group)
+
+    if not shards:
         m_queue = torch.full((rows, 1), NEG_INF, device=q_local.device)
         s_queue_max_raw = m_queue
+    else:
+        # per shard: its (m, S) from K1, or its logits; the maxes detached
+        if use_fused_queue_kernel:
+            partials = [tuple(t[:, None] for t in queue_logsumexp(q_local, shard, temperature))
+                        for shard in shards]
+            m_parts = [m.detach() for m, _ in partials]
+            raw_parts = [m * temperature for m in m_parts]
+        else:
+            sims = [q_local.float() @ shard.float().T for shard in shards]
+            partials = [s / temperature for s in sims]
+            m_parts = [lg.max(dim=-1, keepdim=True).values.detach() for lg in partials]
+            raw_parts = [s.max(dim=-1, keepdim=True).values.detach() for s in sims]
+        # the maxes feed only the detached stabiliser and the metrics
+        m_queue = merged(m_parts, torch.amax, pmax)
+        s_queue_max_raw = merged(raw_parts, torch.amax, pmax)
 
     # row max over the full row, positives included
     m_batch = logits_batch.max(dim=-1, keepdim=True).values
@@ -57,13 +81,14 @@ def sharded_multi_pair_infonce(
     scaled_batch = logits_batch - row_max
     neg_batch_sum = (torch.exp(scaled_batch) * inv_maskf).sum(dim=-1, keepdim=True)
 
-    if kernel_partials is not None:
-        m_loc, s_loc = kernel_partials
-        neg_queue_sum = torch.exp(m_loc - row_max) * s_loc
-    elif queue_shard is not None:
-        neg_queue_sum = torch.exp(logits_queue - row_max).sum(dim=-1, keepdim=True)
-    else:
+    if not shards:
         neg_queue_sum = torch.zeros_like(neg_batch_sum)
+    else:
+        if use_fused_queue_kernel:
+            q_exp = [torch.exp(m - row_max) * s for m, s in partials]
+        else:
+            q_exp = [torch.exp(lg - row_max).sum(dim=-1, keepdim=True) for lg in partials]
+        neg_queue_sum = merged(q_exp, torch.sum, psum)
 
     neg_sum = neg_batch_sum + neg_queue_sum
     pos = torch.where(pos_mask, scaled_batch, NEG_INF)

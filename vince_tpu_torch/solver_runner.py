@@ -9,12 +9,21 @@ builds the loggers (none under ``--debug``), the solver by its registry name,
 runs an optional first validation (``--test-first``), then the epochs (each
 its train iterations, then a validation), and saves in ``finally``, also
 after a crash. A failed run exits with code 1.
+
+With ``--distributed`` each process runs this entry point: the process group
+starts before the solver (``parallel/multihost.py``), only the primary
+process writes logs, and the group is destroyed at the end (a group that
+the caller started is left to it). Launch it with
+``torchrun --nproc-per-node=N -m vince_tpu_torch.solver_runner --distributed
+...`` or, per process, with ``--coordinator-address``, ``--num-processes``
+and ``--process-id``.
 """
 
 import os
 import traceback
 
 from vince_tpu_torch import arg_parser
+from vince_tpu_torch.parallel import multihost
 from vince_tpu_torch.utils.logger import Logger
 
 
@@ -33,8 +42,17 @@ def get_solver_class(name: str):
 def main(argv=None):
     """Train as the flags say; returns the solver, ended."""
     args = arg_parser.parse_args(argv)
+    started = multihost.initialize(args)
+    try:
+        return _run(args)
+    finally:
+        if started:
+            multihost.shutdown()
+
+
+def _run(args):
     train_logger = val_logger = None
-    if not args.debug:
+    if not args.debug and multihost.is_primary():
         train_logger = Logger(os.path.join(args.tensorboard_dir, "train"))
         val_logger = Logger(os.path.join(args.tensorboard_dir, "val"))
 

@@ -44,7 +44,7 @@ from vince_tpu_torch.solvers.end_task_step import (
     init_end_task_state,
     make_end_task_train_step,
 )
-from vince_tpu_torch.solvers.vince_solver import metrics_to_host, refused_flags
+from vince_tpu_torch.solvers.vince_solver import mesh_shape, metrics_to_host, refused_flags
 from vince_tpu_torch.utils.checkpoint import (
     CheckpointManager,
     end_task_state_tree,
@@ -65,8 +65,11 @@ class EndTaskBaseSolver(BaseSolver):
 
     def __init__(self, args, train_logger=None, val_logger=None):
         refused = refused_flags(args)
+        if getattr(args, "distributed", False):
+            refused.append("--distributed for an end task (ROADMAP.md §1 item 8b)")
         if refused:
             raise ValueError("not ported yet: " + "; ".join(refused))
+        mesh_shape(args, 1)  # one process: the data axis clamps to it, a queue axis raises
         self.device = resolve_device(getattr(args, "platform", "cuda"))
         self.seed = getattr(args, "seed", 0)
         self.train_loader: Optional[PersistentDataLoader] = None

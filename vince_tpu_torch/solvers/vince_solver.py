@@ -1,6 +1,7 @@
 """The VINCE pretraining solver (counterpart of
-``vince_tpu/solvers/vince_solver.py``): the training engine around the step
-on one device.
+``vince_tpu/solvers/vince_solver.py``): the training engine around the step,
+on one device or, under ``--distributed``, on one rank of a (data, queue)
+mesh of processes.
 
 - Sources: an ImageNet-shaped source (decoders trained by CE) and/or a video
   source, one batch of each per iteration, concatenated; a persistent loader
@@ -19,6 +20,17 @@ on one device.
 The step updates the state in place and, captured, holds the addresses of
 its tensors: the solver never rebinds ``self.state`` or a tensor of it, and
 writes the queue's prefill and a restore into the existing tensors.
+
+On a mesh: the mesh is ``--mesh-data-size`` × ``--mesh-queue-size`` with the
+data axis clamped to the processes present, as JAX clamps it to the devices;
+each loader reads the shard of the rank's data index, so the ranks of one
+data row read the same items, and with a queue axis the row's first rank's
+batch is broadcast to the others (a video's frames are drawn at random per
+process); the prefill gathers the keys over the data axis and each rank
+writes its queue shard; the val pass runs its full count of batches on every
+rank; logs, the profiler trace, the thumbnail ring, the image panels and the
+kNN probe run with one process only, as in JAX, and the checkpoint is the
+primary's.
 """
 
 import os
@@ -27,6 +39,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vince_tpu_torch.data import get_dataset
 from vince_tpu_torch.data.loader import PersistentDataLoader
@@ -34,6 +47,8 @@ from vince_tpu_torch.data.npz_dataset import NPZDataset
 from vince_tpu_torch.data.prefetch import BatchPrefetcher, pull_with_kill, ready, stage
 from vince_tpu_torch.device import resolve_device
 from vince_tpu_torch.ops.queue import HostImageRing
+from vince_tpu_torch.parallel import multihost
+from vince_tpu_torch.parallel.mesh import Mesh, MeshSpec
 from vince_tpu_torch.solvers.base_solver import BaseSolver
 from vince_tpu_torch.solvers.vince_step import (
     SourceSpec,
@@ -58,19 +73,30 @@ def refused_flags(args) -> List[str]:
     """What the flags ask for that the port does not have yet, each with the
     ``ROADMAP.md`` item that ports it."""
     out = []
-    if max(getattr(args, "mesh_data_size", 0), 1) > 1 or getattr(args, "mesh_queue_size", 1) > 1:
-        out.append(f"a device mesh of {args.mesh_data_size}x{args.mesh_queue_size} (one GPU; "
-                   "multi-GPU is ROADMAP.md §1 item 8)")
-    for flag, item in (("distributed", 8), ("sync_bn", 8), ("remat", 5), ("native_decode", 6),
-                       ("use_imagenet_weights", 6)):
+    for flag, item in (("remat", 5), ("native_decode", 6), ("use_imagenet_weights", 6)):
         if getattr(args, flag, False):
             out.append(f"--{flag.replace('_', '-')} (ROADMAP.md §1 item {item})")
-    if getattr(args, "shuffle_mode", "gather") == "a2a":
-        out.append("--shuffle-mode a2a (ROADMAP.md §1 item 8)")
     if getattr(args, "pretrained_weights_path", ""):
         out.append("--pretrained-weights-path (ROADMAP.md §1 item 6, with item 10's "
                    "torch_convert)")
     return out
+
+
+def mesh_shape(args, world: int) -> Tuple[int, int]:
+    """(data, queue) axis sizes from the flags over ``world`` processes: the
+    data axis defaults to all the processes a queue row leaves and is clamped
+    to them (JAX clamps to the devices present: ``--pytorch-gpu-ids 0,1`` on
+    one process trains on one GPU), and the mesh must fill the world."""
+    mq = max(getattr(args, "mesh_queue_size", 1), 1)
+    asked = getattr(args, "mesh_data_size", 0) or world // mq
+    md = max(1, min(asked, world // mq))
+    if md != asked:
+        print(f"--mesh-data-size {asked} clamped to {md}: {world} process(es), a queue axis "
+              f"of {mq}")
+    if md * mq != world:
+        raise ValueError(f"a {md}x{mq} mesh needs {md * mq} processes, the run has {world} "
+                         "(--distributed starts one per GPU)")
+    return md, mq
 
 
 def metrics_to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -85,7 +111,14 @@ class VinceSolver(BaseSolver):
         refused = refused_flags(args)
         if refused:
             raise ValueError("not ported yet: " + "; ".join(refused))
-        self.device = resolve_device(getattr(args, "platform", "cuda"))
+        platform = getattr(args, "platform", "cuda")
+        self.device = (multihost.local_device(platform) if dist.is_initialized()
+                       else resolve_device(platform))
+        md, mq = mesh_shape(args, multihost.process_count())
+        # a mesh only under a process group; one process without one is the
+        # single-device step (a 1x1 mesh's collectives over a world of one
+        # run under --distributed)
+        self.mesh = Mesh(MeshSpec(md, mq)) if dist.is_initialized() else None
         self.seed = getattr(args, "seed", 0)
         self.train_loaders: List[Tuple[str, PersistentDataLoader]] = []
         self.val_loaders: List[Tuple[str, PersistentDataLoader]] = []
@@ -118,27 +151,41 @@ class VinceSolver(BaseSolver):
         if args.disable_dataloader:
             return
         nf = max(args.num_frames, 1)
+        # the loaders shard by data index: the ranks of one data row read the
+        # same items, those of other rows disjoint stride slices of one
+        # shared-seed epoch permutation
+        md = 1 if self.mesh is None else self.mesh.data_size
+        d_idx = 0 if self.mesh is None else self.mesh.data_index
 
         def add_source(spec: SourceSpec, dataset_name: str):
             self.sources.append(spec)
-            items = spec.batch_size // spec.num_frames
+            items_per_batch = spec.batch_size // spec.num_frames
+            if items_per_batch % md:
+                raise ValueError(f"{spec.name}: {items_per_batch} videos/batch not divisible by "
+                                 f"a data axis of {md} — raise --batch-size")
+            items = items_per_batch // md
             train_loader = PersistentDataLoader(
                 batch_size=items,
                 num_workers=min(args.num_workers, 16),
                 never_ending=True,
                 use_processes=getattr(args, "loader_processes", False),
+                num_shards=md,
+                shard_id=d_idx,
             )
             train_loader.set_dataset(self._make_dataset(dataset_name, "train"))
             val_loader = PersistentDataLoader(
                 batch_size=items,
                 num_workers=min(args.num_workers, 8),
                 never_ending=True,
+                num_shards=md,
+                shard_id=d_idx,
             )
             val_ds = self._make_dataset(dataset_name, "val")
             val_loader.set_dataset(val_ds)
-            # one pass over the val set: ceil(len / items) batches
+            # one pass over the val set: ceil(the shard's share / items)
+            # batches, the same count on every rank
             self._val_epoch_batches = max(getattr(self, "_val_epoch_batches", 0),
-                                          -(-len(val_ds) // items))
+                                          -(-(len(val_ds) // md) // items))
             self.train_loaders.append((spec.name, train_loader))
             self.val_loaders.append((spec.name, val_loader))
 
@@ -202,6 +249,10 @@ class VinceSolver(BaseSolver):
                                              getattr(args, "dw_kind", "conv")),
             se_kind=getattr(args, "se_kind", "mul"),
             jitter_order=getattr(args, "jitter_order", "torchvision"),
+            shuffle_mode=getattr(args, "shuffle_mode", "gather"),
+            data_axis_size=1 if self.mesh is None else self.mesh.data_size,
+            queue_axis_size=1 if self.mesh is None else self.mesh.queue_size,
+            sync_bn=getattr(args, "sync_bn", False),
         )
 
     def setup_model(self):
@@ -209,12 +260,15 @@ class VinceSolver(BaseSolver):
         self.cfg = self._config()
         self.optimizer = build_vince_optimizer(self.lr_schedule,
                                                kind=getattr(args, "optimizer", "sgd"))
-        self.state = init_vince_state(self.seed, self.cfg, self.optimizer, device=self.device)
+        mesh = self.mesh
+        self.state = init_vince_state(self.seed, self.cfg, self.optimizer, device=self.device,
+                                      mesh=mesh)
         self.ckpt = CheckpointManager(
             args.checkpoint_dir,
             args.long_save_checkpoint_dir,
             max_to_keep=5,
             long_save_frequency=args.long_save_frequency,
+            mesh=mesh,
         )
         if args.restore and self.ckpt.restore(
                 self.state, saved_variable_prefix=args.saved_variable_prefix,
@@ -226,7 +280,11 @@ class VinceSolver(BaseSolver):
             print(f"Restored step {self.state.step}; resuming epoch {self.epoch}")
 
         # the captured step on a CUDA device; the eager one only on the CPU
-        make_step = make_train_step if self.device.type == "cuda" else make_train_step_fn
+        capture = make_train_step if self.device.type == "cuda" else make_train_step_fn
+
+        def make_step(cfg, optimizer, jigsaw_side=None):
+            return capture(cfg, optimizer, jigsaw_side=jigsaw_side, mesh=mesh)
+
         self.train_step = make_step(self.cfg, self.optimizer)
         if self.cfg.jigsaw:
             if getattr(args, "jigsaw_sides", "alternate") == "both":
@@ -240,13 +298,13 @@ class VinceSolver(BaseSolver):
                 # the warm-up's both-sides step exists whatever the sides
                 self.train_step_jigsaw_both = both or make_step(
                     self.cfg, self.optimizer, jigsaw_side="both")
-        self.eval_step = make_eval_step(self.cfg)
-        self.embed_fn = make_embed_fn(self.cfg)
-        self.key_embed_fn = make_embed_fn(self.cfg, use_key_encoder=True)
-        self.key_prefill_fns = [make_key_prefill_fn(self.cfg, i)
+        self.eval_step = make_eval_step(self.cfg, mesh)
+        self.embed_fn = make_embed_fn(self.cfg, mesh=mesh)
+        self.key_embed_fn = make_embed_fn(self.cfg, use_key_encoder=True, mesh=mesh)
+        self.key_prefill_fns = [make_key_prefill_fn(self.cfg, i, mesh)
                                 for i in range(len(self.sources))]
         self._prefill_counter = 0
-        self.panel_fn = make_panel_fn(self.cfg)
+        self.panel_fn = make_panel_fn(self.cfg, mesh)
         self._prefetch_stream = (torch.cuda.Stream(self.device)
                                  if self.device.type == "cuda" else None)
         # a thumbnail of each queue row for the panels, at a resolution that
@@ -302,12 +360,23 @@ class VinceSolver(BaseSolver):
             self._prefetcher.stop()
             self._prefetcher = None
 
+    def _same_in_queue_row(self, device_batch):
+        """With a queue axis, the data row's first rank's batch on every rank
+        of the row, in place (on this thread, in the order of the step's
+        collectives)."""
+        mesh = self.mesh
+        if mesh is not None and mesh.queue_size > 1:
+            for src in device_batch:
+                for k in sorted(src):
+                    dist.broadcast(src[k], mesh.queue_source_rank(), group=mesh.queue_group)
+        return device_batch
+
     def get_batch(self):
         """(per-source device dicts, their host batches), the device tensors
         ordered before what the current stream runs next."""
         staged, host_batches = (self._stage_batch() if self._prefetcher is None
                                 else self._prefetcher.get())
-        return ready(staged, self.device), host_batches
+        return self._same_in_queue_row(ready(staged, self.device)), host_batches
 
     # ----------------------------------------------------------------- queue
     def _embed_batch_keys(self, device_batch):
@@ -326,8 +395,13 @@ class VinceSolver(BaseSolver):
 
     @torch.no_grad()
     def _write_queue(self, bank, sources, tail: int, total: int):
-        """The bank into the state's queue, in place."""
+        """The whole bank (the same on every rank: the prefill gathers its
+        keys) into the state's queue, in place: on a mesh, the rank's shard."""
         q = self.state.queue
+        if self.mesh is not None:
+            bank = multihost.local_slice(bank, self.mesh.queue_index, self.mesh.queue_size)
+            sources = multihost.local_slice(sources, self.mesh.queue_index,
+                                            self.mesh.queue_size)
         q.vectors.copy_(bank)
         q.sources.copy_(sources)
         q.tail.fill_(tail)
@@ -356,12 +430,14 @@ class VinceSolver(BaseSolver):
             e, s = self._embed_batch_keys(device_batch)
             keys.append(e)
             srcs.append(s)
-            t, nm = self._host_thumbs(host_batches)
-            thumbs.extend(t)
-            names.extend(nm)
+            if not multihost.is_multiprocess():  # no ring with more than one process
+                t, nm = self._host_thumbs(host_batches)
+                thumbs.extend(t)
+                names.extend(nm)
             n += len(e)
         self._write_queue(torch.cat(keys)[:k], torch.cat(srcs)[:k], tail=0, total=k)
-        self.image_ring.fill_repeat(thumbs[:k], names[:k])
+        if not multihost.is_multiprocess():
+            self.image_ring.fill_repeat(thumbs[:k], names[:k])
         print("Queue filled")
 
     def fill_queue_repeat(self):
@@ -371,8 +447,9 @@ class VinceSolver(BaseSolver):
         k = self.cfg.queue_size
         reps = -(-k // len(keys))
         self._write_queue(keys.repeat(reps, 1)[:k], srcs.repeat(reps)[:k], tail=0, total=0)
-        thumbs, names = self._host_thumbs(host_batches)
-        self.image_ring.fill_repeat(thumbs, names)
+        if not multihost.is_multiprocess():
+            thumbs, names = self._host_thumbs(host_batches)
+            self.image_ring.fill_repeat(thumbs, names)
         print("Queue filled with repeats")
 
     # ----------------------------------------------------------------- train
@@ -396,7 +473,7 @@ class VinceSolver(BaseSolver):
         """With ``--profile-dir``, a torch.profiler trace from global step 5 to
         8, written as a Chrome trace into the directory."""
         profile_dir = getattr(self.args, "profile_dir", "")
-        if not profile_dir or self._trace_done:
+        if not profile_dir or self._trace_done or not multihost.is_primary():
             return
         first, last = PROFILE_STEPS
         if self.state.step == first and self._profiler is None:
@@ -447,14 +524,18 @@ class VinceSolver(BaseSolver):
         self.log_step_metrics(metrics)
         self.time_meters["metrics_time"].update(watch.lap())
 
-        thumbs, names = self._host_thumbs(host_batches)
-        for t, nm in zip(thumbs, names):
-            self.image_ring.enqueue([t], nm)
-        # panels only where the logger writes images (tensorboardX imports)
-        if (self.train_logger is not None and self.train_logger.writer is not None
-                and self.logger_iteration > 0
-                and self.logger_iteration % self.args.image_log_frequency == 0):
-            self.log_images(host_batches)
+        # the thumbnail ring and the panels with one process only: a rank sees
+        # its rows of the batch, and the panel's forward is a collective no
+        # rank may run alone
+        if not multihost.is_multiprocess():
+            thumbs, names = self._host_thumbs(host_batches)
+            for t, nm in zip(thumbs, names):
+                self.image_ring.enqueue([t], nm)
+            # panels only where the logger writes images (tensorboardX imports)
+            if (self.train_logger is not None and self.train_logger.writer is not None
+                    and self.logger_iteration > 0
+                    and self.logger_iteration % self.args.image_log_frequency == 0):
+                self.log_images(host_batches)
 
         self.iteration += self.args.batch_size
         self.logger_iteration += 1
@@ -516,10 +597,14 @@ class VinceSolver(BaseSolver):
         cap = getattr(self, "_val_epoch_batches", None) or 1
         if max_batches is not None:
             cap = min(cap, max_batches)
+        if multihost.is_multiprocess():
+            # the eval step is a collective: every rank runs the same count of
+            # batches, so a rank's own clock cannot cut the pass
+            max_seconds = float("inf")
         while time.time() - t_start < max_seconds and n < cap:
             host_batches = [loader.get_batch() for _, loader in self.val_loaders]
-            device_batch = ready(stage(self._host_arrays(host_batches), self.device),
-                                 self.device)
+            device_batch = self._same_in_queue_row(
+                ready(stage(self._host_arrays(host_batches), self.device), self.device))
             metrics = metrics_to_host(
                 self.eval_step(self.state, device_batch, fold_in(self.seed, n)))
             for k, v in metrics.items():
@@ -544,6 +629,12 @@ class VinceSolver(BaseSolver):
         """Embed the probe set; each sample's 10 nearest others (k-d tree,
         Euclidean) vote on its label by their mode."""
         if self.cifar_dataset is None:
+            return None
+        if multihost.is_multiprocess():
+            # a single-process probe: run it from a checkpoint
+            if not getattr(self, "_knn_notice_done", False):
+                self._knn_notice_done = True
+                print("kNN probe skipped under --distributed")
             return None
         import scipy.stats
         from scipy.spatial import cKDTree

@@ -20,6 +20,12 @@ directory is not written there again, as orbax skips it.
 Restore copies into the state's own tensors in place: a captured train step
 holds their addresses.
 
+On a mesh (``parallel/mesh.py``) the file is the same: the queue shards are
+gathered over the queue axis into the whole bank, and only the primary
+process writes, while the others wait at a barrier. Every process restores
+from that one file and keeps its own shard of the bank, so a checkpoint of
+one mesh restores on any other (JAX's elastic restore).
+
 An end task's ``EndTaskState`` is kept the same way, under its own tree
 (``end_task_state_tree``: encoder, decoder, the optimizer's buffers and
 count, step), and its encoder is read out of a pretraining checkpoint by
@@ -27,6 +33,7 @@ count, step), and its encoder is read out of a pretraining checkpoint by
 encoder's.
 """
 
+import functools
 import os
 import shutil
 import time
@@ -35,18 +42,27 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from vince_tpu_torch.parallel import multihost
+from vince_tpu_torch.parallel.collectives import gather_global_batch
+
 STATE_FILE = "state.pt"
 
 
-def state_tree(state) -> Dict:
-    """The tensors of a ``VinceState`` by name (they are the state's own)."""
+def state_tree(state, mesh=None) -> Dict:
+    """The tensors of a ``VinceState`` by name (they are the state's own,
+    but for the bank of a mesh: its shards gathered over the queue axis, a
+    collective every rank takes part in)."""
     q = state.queue
+    vectors, sources = q.vectors, q.sources
+    if mesh is not None:
+        vectors = gather_global_batch(vectors, mesh.queue_group)
+        sources = gather_global_batch(sources, mesh.queue_group)
     return {
         "model": state.model.state_dict(),
         "key_model": state.key_model.state_dict(),
         "optimizer": {name: state.optimizer.state[p]["momentum_buffer"]
                       for name, p in state.model.named_parameters()},
-        "queue": {"vectors": q.vectors, "sources": q.sources, "tail": q.tail, "total": q.total},
+        "queue": {"vectors": vectors, "sources": sources, "tail": q.tail, "total": q.total},
         "step": int(state.step),
     }
 
@@ -105,9 +121,10 @@ def _copy_into(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor], stric
 
 
 @torch.no_grad()
-def load_state_tree(state, tree: Dict, strict: bool = True) -> None:
+def load_state_tree(state, tree: Dict, strict: bool = True, mesh=None) -> None:
     """Copy a checkpoint's tree into ``state``'s tensors in place. ``strict``
-    asks for every tensor of the state and no other."""
+    asks for every tensor of the state and no other. On a mesh the state
+    keeps its shard of the saved bank."""
     _copy_into(state.model.state_dict(), tree["model"], strict, "model")
     _copy_into(state.key_model.state_dict(), tree["key_model"], strict, "key_model")
     traces = {name: state.optimizer.state[p]["momentum_buffer"]
@@ -115,7 +132,10 @@ def load_state_tree(state, tree: Dict, strict: bool = True) -> None:
     _copy_into(traces, tree["optimizer"], strict, "optimizer")
     q = state.queue
     for name in ("vectors", "sources", "tail", "total"):
-        getattr(q, name).copy_(tree["queue"][name])
+        saved = tree["queue"][name]
+        if mesh is not None and name in ("vectors", "sources"):
+            saved = multihost.local_slice(saved, mesh.queue_index, mesh.queue_size)
+        getattr(q, name).copy_(saved)
     q.inserted = int(tree["queue"]["total"])
     state.step = int(tree["step"])
 
@@ -185,12 +205,18 @@ def load_pretrain_encoder(encoder, tensors: Dict[str, torch.Tensor]) -> None:
 class CheckpointManager:
     """Rolling and long-save checkpoints of a ``VinceState``, or of another
     state through ``tree_fn`` (state → tree of tensors) and ``load_fn``
-    (state, tree, strict → None, in place)."""
+    (state, tree, strict → None, in place). With a ``mesh`` every process
+    calls ``save``; the primary writes, and the others wait at a barrier
+    until it has its copy of the state."""
 
     def __init__(self, checkpoint_dir: str, long_save_checkpoint_dir: Optional[str] = None,
                  max_to_keep: int = 5, long_save_frequency: int = 25,
-                 tree_fn: Callable = state_tree, load_fn: Callable = load_state_tree):
-        self.tree_fn, self.load_fn = tree_fn, load_fn
+                 tree_fn: Callable = state_tree, load_fn: Callable = load_state_tree,
+                 mesh=None):
+        if mesh is not None:
+            tree_fn = functools.partial(tree_fn, mesh=mesh)
+            load_fn = functools.partial(load_fn, mesh=mesh)
+        self.tree_fn, self.load_fn, self.mesh = tree_fn, load_fn, mesh
         self.checkpoint_dir = os.path.abspath(checkpoint_dir)
         self.long_dir = (os.path.abspath(long_save_checkpoint_dir)
                          if long_save_checkpoint_dir else None)
@@ -211,6 +237,13 @@ class CheckpointManager:
 
     def save(self, step: int, state, force_long: bool = False) -> None:
         self.wait_until_finished()
+        tree = self.tree_fn(state)  # on a mesh a collective, which every rank takes part in
+        if self.mesh is None or multihost.is_primary():
+            self._save(step, tree, force_long)
+        if self.mesh is not None:
+            multihost.sync("save")
+
+    def _save(self, step: int, tree, force_long: bool) -> None:
         step = int(step)
         self._save_count += 1
         targets = []
@@ -222,7 +255,7 @@ class CheckpointManager:
         if not targets:
             return
         t0 = time.perf_counter()
-        tree = _to_host(self.tree_fn(state))
+        tree = _to_host(tree)
         timing = {"step": step, "host_copy_s": time.perf_counter() - t0}
         self.timings.append(timing)
         self._pending = self._executor.submit(self._write_all, targets, step, tree, timing)
@@ -276,3 +309,5 @@ class CheckpointManager:
     def close(self) -> None:
         self.wait_until_finished()
         self._executor.shutdown(wait=True)
+        if self.mesh is not None:
+            multihost.sync("checkpoint written")
