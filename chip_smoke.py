@@ -96,7 +96,26 @@ Phases:
      ``--distributed`` and the three explicit flags, ``--sync-bn
      --shuffle-mode a2a`` on phase 9's configuration, 8 iterations, its val
      pass and a save, then a run without ``--distributed`` that restores the
-     checkpoint bit-identically.
+     checkpoint bit-identically;
+ 13. remat, the reference's weights and the retrieval probe. For each of
+     the ResNet50 and the EfficientNet-B0 of phase 5, the captured step with
+     ``remat`` and without from one seed, cuDNN deterministic (3 eager
+     warm-up calls, the capture, a replay): the loss within 1e-5 relative,
+     the update within 1e-3 of its norm, the running averages after one step
+     bit-equal, the launches of each call (K2 13 x 3 per step, K4 12 x 4 and
+     its filter gradient 12: the query forward runs again in the backward);
+     then a new capture of each under cuDNN's defaults, 5 timed replays, the
+     peak reserved lower with remat. The sync-BN step with remat at a world
+     of one against the one-device step with remat, bit-identical. A ResNet50
+     ``VinceModel`` state dict written by name with seeded values and the
+     DataParallel prefixes: into the CLI's solver with
+     ``--pretrained-weights-path`` (both encoders equal to the file, 4
+     captured iterations), through ``convert_reference_checkpoint`` into the
+     frozen ImageNet probe of phase 10 (its encoder equal to the file, 4
+     iterations), and ``export_reference_checkpoint`` of the converted
+     directory back to the written dict, bit for bit. The retrieval probe
+     (64 val-split videos x 6 frames) on phase 9's latest checkpoint and
+     with ``--no-restore``.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -2601,6 +2620,401 @@ def run_distributed(dev, card, tmp, captured_ms):
     return paths, result
 
 
+# phase 13: remat through K2 and K4 (the captured step with and without it),
+# the reference's PyTorch weights into the CLI, through the conversion tool into
+# an end task and back out, and the retrieval probe on phase 9's checkpoint
+REMAT_TIMED = 5
+# each kernel's launches per step with remat: the query forward runs again in
+# the backward, so K2 13 x 3 (key, query, recompute) and K4 12 x 4 (key,
+# query, recompute, dgrad)
+REMAT_PER_STEP = {
+    "ResNet50": {"queue_logsumexp": 1, "affine_relu_dot_moments": 39, "depthwise_conv": 0,
+                 "depthwise_wgrad": 0},
+    "EfficientNetB0": {"queue_logsumexp": 1, "affine_relu_dot_moments": 0, "depthwise_conv": 48,
+                       "depthwise_wgrad": 12},
+}
+WEIGHTS_ITERATIONS = 4
+REFERENCE_PREFIX = "feature_extractor.module.model."
+RETRIEVAL_ARGV = ["--retrieval-videos", "64", "--retrieval-frames", "6"]
+
+
+def remat_config(backbone, remat):
+    return dataclasses.replace(train_config(backbone), remat=remat)
+
+
+def per_step(backbone, remat):
+    return (REMAT_PER_STEP if remat else {b: p["per_step"] for b, p in TRAIN_PHASES.items()})[
+        backbone]
+
+
+def running_averages(state):
+    """Both encoders' BatchNorm running averages, copied."""
+    return {f"{which}.{k}": v.detach().clone()
+            for which, model in (("query", state.model), ("key", state.key_model))
+            for k, v in model.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+
+
+def remat_against_plain(dev, backbone):
+    """The captured step with and without remat from one seed over the same
+    batches, cuDNN deterministic: 3 eager warm-up calls, the capture and one
+    replay, the launches of each call. Returns the largest relative loss gap
+    over the calls, the update gap of the query encoder after them, whether
+    the running averages after the first step are bit-equal, and the
+    launches at the remat step's capture."""
+    from vince_tpu_torch.solvers.vince_step import (
+        WARMUP_STEPS, build_vince_optimizer, init_vince_state, make_train_step)
+
+    opt = build_vince_optimizer(0.03)
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, True):
+            state = init_vince_state(0, remat_config(backbone, remat), opt, device=dev)
+            init = {k: v.detach().clone() for k, v in state.model.named_parameters()}
+            step = make_train_step(remat_config(backbone, remat), opt)
+            losses, stats = [], None
+            for i in range(WARMUP_STEPS + 2):
+                reset_counts()
+                _, m = step(state, make_batch(dev, seed=i), i)
+                torch.cuda.synchronize()
+                what = ("eager warm-up" if i < WARMUP_STEPS else "capture, then replay"
+                        if i == WARMUP_STEPS else "replay")
+                launches = expect_counts(f"{backbone}, remat {remat}, call {i} ({what})",
+                                         per_step(backbone, remat) if i <= WARMUP_STEPS else {})
+                if i == WARMUP_STEPS:
+                    capture_launches = launches
+                losses.append(m["loss/total_loss"].item())
+                if i == 0:
+                    stats = running_averages(state)
+            runs[remat] = dict(state=state, init=init, losses=losses, stats=stats,
+                               capture_launches=capture_launches, step=step)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    plain, remat = runs[False], runs[True]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(remat["losses"], plain["losses"]))
+    upd = update_gap(plain["state"], remat["state"], plain["init"])
+    stats_equal = all(torch.equal(v, remat["stats"][k]) for k, v in plain["stats"].items())
+    for i, (a, b) in enumerate(zip(plain["losses"], remat["losses"])):
+        log(f"    call {i}: loss without remat {a!r}, with remat {b!r}")
+    log(f"  {backbone}: remat against no remat over {len(plain['losses'])} calls, cuDNN "
+        f"deterministic: max loss gap {loss_gap:.3e} (tol 1e-5), |update_remat - update| / "
+        f"|update| = {upd:.3e} (tol 1e-3), running averages after one step bit-equal: "
+        f"{stats_equal}")
+    if loss_gap > 1e-5 or upd > 1e-3 or not stats_equal:
+        fail(f"phase 13, {backbone}: the remat step departs from the step without remat")
+    result = dict(loss_gap=loss_gap, update_gap=upd, stats_equal=stats_equal,
+                  capture_launches=remat["capture_launches"])
+    del runs, plain, remat
+    free_cuda()
+    return result
+
+
+def remat_timed(dev, backbone, card):
+    """For each of no remat and remat, a new state and capture under cuDNN's
+    defaults, then ``REMAT_TIMED`` timed replays: ms/step and the peak
+    reserved (the graph's pool included), remat's required to be lower."""
+    from vince_tpu_torch.solvers.vince_step import (
+        WARMUP_STEPS, build_vince_optimizer, init_vince_state, make_train_step)
+
+    opt = build_vince_optimizer(0.03)
+    out = {}
+    for remat in (False, True):
+        free_cuda()
+        cfg = remat_config(backbone, remat)
+        state = init_vince_state(0, cfg, opt, device=dev)
+        step = make_train_step(cfg, opt)
+        captured_calls(dev, step, state, WARMUP_STEPS + 1, per_step(backbone, remat))
+        reset_counts()
+        ms, step_ms, _, peak = time_steps(step, state, make_batch(dev), REMAT_TIMED)
+        log_times(f"{backbone} captured, remat {remat}", ms, step_ms, peak)
+        expect_counts(f"{REMAT_TIMED} timed replays", {})
+        out[remat] = {"ms_per_step": ms, "peak_gib": peak}
+        del state, step
+    free_cuda()
+    log(f"  {backbone}: captured ms/step {out[False]['ms_per_step']:.3f} without remat, "
+        f"{out[True]['ms_per_step']:.3f} with; peak reserved {out[False]['peak_gib']:.3f} "
+        f"GiB without, {out[True]['peak_gib']:.3f} with; card {card}")
+    if out[True]["peak_gib"] >= out[False]["peak_gib"]:
+        fail(f"phase 13, {backbone}: remat reserves no less memory than the step without it")
+    return out
+
+
+def remat_sync_bn(dev, steps=2):
+    """A world-of-one NCCL group: the eager sync-BN step with remat (its
+    recompute's psums run again in the backward) against the one-device step
+    with remat, from one seed over the same batches, cuDNN deterministic:
+    bit-identical. Returns the launches."""
+    import torch.distributed as dist
+
+    from vince_tpu_torch.solvers.vince_step import (
+        build_vince_optimizer, init_vince_state, make_train_step_fn)
+
+    opt = build_vince_optimizer(0.03)
+    mesh = start_world_of_one(dev)
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg_d = dataclasses.replace(dist_config("gather"), remat=True)
+        cfg_one = remat_config("ResNet50", True)
+        s_dist = init_vince_state(0, cfg_d, opt, device=dev, mesh=mesh)
+        s_one = init_vince_state(0, cfg_one, opt, device=dev)
+        step_d = make_train_step_fn(cfg_d, opt, mesh=mesh)
+        step_one = make_train_step_fn(cfg_one, opt)
+        losses = {"dist": [], "one": []}
+        reset_counts()
+        for i in range(steps):
+            losses["dist"].append(step_d(s_dist, make_batch(dev, seed=i), i)[1]
+                                  ["loss/total_loss"].item())
+        torch.cuda.synchronize()
+        launches = expect_counts(f"{steps} sync-BN steps with remat",
+                                 {k: v * steps for k, v in per_step("ResNet50", True).items()})
+        for i in range(steps):
+            losses["one"].append(step_one(s_one, make_batch(dev, seed=i), i)[1]
+                                 ["loss/total_loss"].item())
+        differs = first_difference(s_dist, s_one)
+        if losses["dist"] != losses["one"] or differs:
+            fail(f"phase 13: the world-of-one sync-BN step with remat is not bit-identical to "
+                 f"the one-device step with remat: losses {losses}, first differing tensor "
+                 f"{differs}")
+        log(f"  sync-BN with remat, {mesh}: losses {losses['dist']}, weights, running averages, "
+            f"momentum traces and queue bit-identical to the one-device remat step after "
+            f"{steps} steps")
+        del s_dist, s_one
+    finally:
+        torch.backends.cudnn.deterministic = False
+        dist.destroy_process_group()
+    free_cuda()
+    return launches
+
+
+def reference_resnet50_dict(seed=13):
+    """A reference ``VinceModel`` state dict of a ResNet50 with the 128-wide
+    projection, written by name as torchvision and the reference name it:
+    the backbone under the DataParallel prefixes, ``embedding.{0,2}``, seeded
+    values (weights scaled by the fan-in, BatchNorm scales near 1, positive
+    running variances) and a zero ``num_batches_tracked`` per BatchNorm."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g)
+
+    def conv(name, o, i, k):
+        sd[REFERENCE_PREFIX + name + ".weight"] = randn(o, i, k, k) / math.sqrt(i * k * k)
+
+    def bn(name, c):
+        p = REFERENCE_PREFIX + name
+        sd[p + ".weight"], sd[p + ".bias"] = 1 + 0.2 * randn(c), 0.1 * randn(c)
+        sd[p + ".running_mean"] = 0.1 * randn(c)
+        sd[p + ".running_var"] = 0.5 + torch.rand(c, generator=g)
+        sd[p + ".num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    cin = 64
+    for layer, (blocks, f) in enumerate(zip((3, 4, 6, 3), (64, 128, 256, 512)), start=1):
+        for b in range(blocks):
+            p = f"layer{layer}.{b}."
+            conv(p + "conv1", f, cin, 1)
+            bn(p + "bn1", f)
+            conv(p + "conv2", f, f, 3)
+            bn(p + "bn2", f)
+            conv(p + "conv3", 4 * f, f, 1)
+            bn(p + "bn3", 4 * f)
+            if b == 0:
+                conv(p + "downsample.0", 4 * f, cin, 1)
+                bn(p + "downsample.1", 4 * f)
+            cin = 4 * f
+    for name, o, i in (("embedding.0", 2048, 2048), ("embedding.2", 128, 2048)):
+        sd[name + ".weight"], sd[name + ".bias"] = randn(o, i) / math.sqrt(i), 0.1 * randn(o)
+    return sd
+
+
+def same_tensors(what, got, want):
+    """``got`` holds every tensor of ``want`` with its bits (on any device)."""
+    bad = [k for k, v in want.items() if k not in got or not torch.equal(got[k].cpu(), v)]
+    if bad:
+        fail(f"{what}: {len(bad)} tensors differ from the file's, first {bad[:3]}")
+
+
+def run_weights(tmp):
+    """The reference's weights: a written ResNet50 ``VinceModel`` file into
+    the CLI's solver with ``--pretrained-weights-path`` (both encoders equal
+    to the file, then ``WEIGHTS_ITERATIONS`` captured iterations), through
+    ``convert_reference_checkpoint`` into the frozen ImageNet probe of phase
+    10 (its encoder equal to the file, ``WEIGHTS_ITERATIONS`` iterations, no
+    kernel), and ``export_reference_checkpoint`` of the converted directory
+    back to the written dict, bit for bit. Returns the launches and the
+    numbers."""
+    from vince_tpu_torch import arg_parser, solver_runner
+    from vince_tpu_torch.solvers.vince_solver import VinceSolver
+    from vince_tpu_torch.tools import convert_reference_checkpoint, export_reference_checkpoint
+    from vince_tpu_torch.utils.torch_convert import convert_vince_state_dict
+
+    root = os.path.join(tmp, "weights")
+    os.makedirs(root, exist_ok=True)
+    sd = reference_resnet50_dict()
+    pt = os.path.join(root, "vince_weights_resnet50.pt")
+    torch.save(sd, pt)
+    want = convert_vince_state_dict(sd)
+    result, paths = {}, {}
+
+    argv = CLI_ARGV + ["--title", "weights", "--description", "resnet50", "--base-logdir", tmp,
+                       "--epochs", "1", "--no-save", "--pretrained-weights-path", pt]
+    log(f"phase 13, weights: the parser and the solver with --pretrained-weights-path (a "
+        f"ResNet50 VinceModel state dict of {len(sd)} tensors written with seeded values), "
+        f"{WEIGHTS_ITERATIONS} iterations")
+    free_cuda()
+    t0 = time.perf_counter()
+    with CliRecord() as rec, contextlib.redirect_stdout(Tee(sys.stdout)) as out:
+        solver = VinceSolver(arg_parser.parse_args(argv))
+        try:
+            if f"Initialized backbone from torch weights: {pt}" not in out.getvalue():
+                fail("phase 13: the solver did not load --pretrained-weights-path")
+            for which, model in (("query", solver.state.model), ("key", solver.state.key_model)):
+                own = model.state_dict()
+                if set(own) != set(want):
+                    fail(f"phase 13: the {which} encoder's tensors are not the file's: "
+                         f"{sorted(set(own) ^ set(want))[:5]}")
+                same_tensors(f"phase 13, the {which} encoder after --pretrained-weights-path",
+                             own, want)
+            solver.run_n_train_iterations(WEIGHTS_ITERATIONS)
+        finally:
+            solver.end()
+    del solver
+    free_cuda()
+    result["cli_s"] = time.perf_counter() - t0
+    paths["phase 13 --pretrained-weights-path CLI"] = check_cli_calls(
+        "--pretrained-weights-path", rec, "ResNet50", WEIGHTS_ITERATIONS, 1)
+    log(f"  query and key encoders bit-identical to the file; {WEIGHTS_ITERATIONS} iterations "
+        f"in {result['cli_s']:.1f} s wall with the setup")
+
+    conv_dir = os.path.join(root, "converted")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(Tee(sys.stdout)):
+        convert_reference_checkpoint.main(["--torch-checkpoint", pt, "--output-dir", conv_dir,
+                                           "--backbone", "ResNet50", "--embed-size", "128",
+                                           "--queue-size", "65536", "--image-size", "224"])
+    result["convert_s"] = time.perf_counter() - t0
+    spec = END_TASK_RUNS["ResNet50-IN-probe"]
+    probe_argv = END_TASK_ARGV[:-len(PRETRAIN_RUN)] + spec["argv"] + [
+        "--title", "weights", "--description", "in_probe", "--solver", spec["solver"],
+        "--base-logdir", tmp, "--checkpoint-dir", conv_dir, "--no-save",
+        "--iterations-per-epoch", str(WEIGHTS_ITERATIONS)]
+    log(f"phase 13, convert_reference_checkpoint ({result['convert_s']:.1f} s), then the "
+        f"ResNet50-IN-probe restored from it: the parser and the solver, {WEIGHTS_ITERATIONS} "
+        f"iterations")
+    reset_counts()
+    with contextlib.redirect_stdout(Tee(sys.stdout)) as out:
+        probe = solver_runner.get_solver_class(spec["solver"])(
+            arg_parser.parse_args(probe_argv))
+        try:
+            if f"Restored pretrain encoder from {conv_dir}" not in out.getvalue():
+                fail("phase 13: the probe did not restore the converted checkpoint")
+            encoder = probe.state.encoder.state_dict()
+            same_tensors("phase 13, the probe's encoder", encoder,
+                         {k: v for k, v in want.items() if k in encoder})
+            probe.reset_epoch()
+            losses = [probe.run_train_iteration()["loss/total_loss"]
+                      for _ in range(WEIGHTS_ITERATIONS)]
+        finally:
+            probe.end()
+    del probe
+    free_cuda()
+    launches, plain = read_counts()
+    if not all(math.isfinite(x) for x in losses) or launches or plain:
+        fail(f"phase 13: the probe's losses {losses}, launches {launches}, plain calls {plain}")
+    paths["phase 13 IN probe from the converted checkpoint"] = launches
+    result["probe_losses"] = losses
+    log(f"  the probe's encoder bit-identical to the file; losses {losses}; no kernel launch")
+
+    exported = os.path.join(root, "exported.pt")
+    with contextlib.redirect_stdout(Tee(sys.stdout)):
+        export_reference_checkpoint.main(["--checkpoint-dir", conv_dir, "--output", exported])
+    back = torch.load(exported, weights_only=True)
+    if set(back) != set(sd) or any(back[k].dtype != v.dtype for k, v in sd.items()):
+        fail(f"phase 13: the export's names or types differ from the written dict's: "
+             f"{sorted(set(back) ^ set(sd))[:5]}")
+    same_tensors("phase 13, the export of the converted checkpoint", back, sd)
+    log(f"  export_reference_checkpoint of the converted directory: the written dict, "
+        f"{len(sd)} tensors, bit for bit")
+    return paths, result
+
+
+def run_retrieval(tmp):
+    """The retrieval probe (``vince_tpu_torch/tools/eval_retrieval.py``) on
+    phase 9's latest checkpoint and with ``--no-restore``: ``retrieval_at_1``,
+    ``chance`` and the seconds of each, the launches (the eval-mode forward
+    takes no kernel)."""
+    from vince_tpu_torch.tools import eval_retrieval
+    from vince_tpu_torch.utils.checkpoint import CheckpointManager
+
+    directory = os.path.join(tmp, "cli", "checkpoints_resnet50")
+    latest = CheckpointManager(directory).latest_step()
+    argv = CLI_ARGV + PRETRAIN_RUN + ["--base-logdir", tmp] + RETRIEVAL_ARGV
+    paths, result = {}, {}
+    for label, extra, step in ((f"step {latest}", [], latest), ("--no-restore",
+                                                               ["--no-restore"], 0)):
+        log(f"phase 13, retrieval: python vince_tpu_torch/tools/eval_retrieval.py "
+            f"{' '.join(RETRIEVAL_ARGV)} with phase 9's flags{' ' if extra else ''}"
+            f"{' '.join(extra)}")
+        free_cuda()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(Tee(sys.stdout)):
+            r = eval_retrieval.main(argv + extra)
+        seconds = time.perf_counter() - t0
+        launches, plain = read_counts()
+        f, n = r["frames"], r["num_videos"]
+        if (r["restored_step"] != step or r["chance"] != round((f - 1) / (n * f - 1), 4)
+                or not 0 <= r["retrieval_at_1"] <= 1 or launches or plain):
+            fail(f"phase 13, retrieval {label}: {r}, launches {launches}, plain calls {plain}")
+        paths[f"phase 13 retrieval, {label}"] = launches
+        result[label] = (r["retrieval_at_1"], r["chance"], seconds)
+        log(f"  {label}: retrieval@1 {r['retrieval_at_1']}, chance {r['chance']}, "
+            f"{seconds:.1f} s")
+    return paths, result
+
+
+def run_phase13(dev, card, tmp):
+    """Phase 13: remat (both backbones, then sync-BN at a world of one), the
+    reference's weights in and out, the retrieval probe."""
+    paths, result = {}, {"remat": {}}
+    t0 = time.perf_counter()
+    for backbone in TRAIN_PHASES:
+        log(f"phase 13, remat: {backbone} at phase 5's shapes and flags, the captured step "
+            f"with remat and without")
+        r = remat_against_plain(dev, backbone)
+        r["timed"] = remat_timed(dev, backbone, card)
+        paths[f"phase 13 {backbone} captured remat (at the capture)"] = r["capture_launches"]
+        result["remat"][backbone] = r
+    log(f"phase 13, remat with sync-BN at a world of one ({DIST_BACKEND})")
+    paths["phase 13 sync-BN remat, 2 eager steps"] = remat_sync_bn(dev)
+    weight_paths, result["weights"] = run_weights(tmp)
+    paths.update(weight_paths)
+    retrieval_paths, result["retrieval"] = run_retrieval(tmp)
+    paths.update(retrieval_paths)
+    result["seconds"] = time.perf_counter() - t0
+    return paths, result
+
+
+def log_phase13(result, card):
+    for backbone, r in result["remat"].items():
+        t = r["timed"]
+        log(f"phase 13 {backbone} remat: captured {t[True]['ms_per_step']:.3f} ms/step against "
+            f"{t[False]['ms_per_step']:.3f} without; peak reserved {t[True]['peak_gib']:.3f} "
+            f"GiB against {t[False]['peak_gib']:.3f}; launches at the capture "
+            f"{r['capture_launches']}; against no remat: loss gap {r['loss_gap']:.3e}, update "
+            f"gap {r['update_gap']:.3e}, running averages after one step bit-equal "
+            f"{r['stats_equal']}; card {card}")
+    w = result["weights"]
+    log(f"phase 13 weights: --pretrained-weights-path encoders bit-identical to the file, "
+        f"{WEIGHTS_ITERATIONS} iterations {w['cli_s']:.1f} s; converted in {w['convert_s']:.1f} s; "
+        f"IN probe losses {w['probe_losses']}; export bit-identical to the written dict")
+    log("phase 13 retrieval (retrieval@1, chance, s): " + ", ".join(
+        f"{label} {r}" for label, r in result["retrieval"].items())
+        + f"; phase 13 took {result['seconds']:.1f} s; card {card}")
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--kernels-only", action="store_true",
@@ -2644,7 +3058,7 @@ def main():
 
 
 def run_phases(args, dev, card, tmp):
-    """Phases 2-11, then the result lines."""
+    """Phases 2-13, then the result lines."""
     kernels = [check_queue_logsumexp(dev), check_affine_relu_dot_moments(dev),
                check_affine_conv3x3_stats(dev), *check_depthwise_conv(dev)]
     kernels[0]["at_queue_shards"] = check_other_shapes(dev)
@@ -2676,6 +3090,8 @@ def run_phases(args, dev, card, tmp):
         dist_paths, distributed = run_distributed(dev, card, tmp,
                                                   times["ResNet50"][1]["ms_per_step"])
         paths.update(dist_paths)
+        phase13_paths, phase13 = run_phase13(dev, card, tmp)
+        paths.update(phase13_paths)
         for k in kernels:
             k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items() if k["name"] in n}
             k["launches"] = sum(k["launches_by_path"].values())
@@ -2736,6 +3152,7 @@ def run_phases(args, dev, card, tmp):
             + f", {laps['frames_per_s']:.2f} frames/s, peak reserved "
             f"{distributed['cli']['peak_gib']:.3f} GiB, val (batches, s) "
             f"{distributed['cli']['val']}; card {card}")
+        log_phase13(phase13, card)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,6 +11,8 @@ starts both sides from one state (JAX's, carried into the port by
 Both sides get the same numpy-made images: ``augment_batch`` is replaced in
 each side's ``end_task_step`` module by the identity."""
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -107,8 +109,11 @@ def run(name):
         opt_t = tet.build_optimizer(cfg_t, c["base_lr"], c["kind"],
                                     schedule=vince_lr_schedule(**_schedule(c["base_lr"])))
 
+        # one port state made, each view a copy of it with the JAX state loaded
+        template = tet.init_end_task_state(1, cfg_t, opt_t, device="cpu")
+
         def port_view(jax_state):
-            state = tet.init_end_task_state(1, cfg_t, opt_t, device="cpu")
+            state = copy.deepcopy(template)
             load_jax_end_task_state(state, jax.tree_util.tree_map(np.asarray,
                                                                   jax.device_get(jax_state)))
             return state

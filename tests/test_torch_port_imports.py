@@ -31,8 +31,13 @@ for name in ("models.efficientnet", "ops.kernels.depthwise_kernel", "ops.kernels
              "run_end_task_eval", "models.tracking_model", "ops.xcorr", "tracking.losses",
              "tracking.ops", "tracking.siamfc_transforms", "tracking.sequences",
              "tracking.tracker", "tracking.experiments", "data.pair_dataset",
-             "data.got10k_dataset"):
+             "data.got10k_dataset", "utils.torch_convert", "ops.infonce"):
     assert "vince_tpu_torch." + name in sys.modules, name
+# the tools beside the package (a directory without __init__.py)
+for name in ("convert_reference_checkpoint", "export_reference_checkpoint", "eval_retrieval"):
+    importlib.import_module("vince_tpu_torch.tools." + name)
+bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "vince_tpu"))
+assert not bad, bad
 from vince_tpu_torch.utils.logger import Logger
 assert Logger("unused").writer is None  # the in-memory history only
 """

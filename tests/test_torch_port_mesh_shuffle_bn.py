@@ -9,18 +9,19 @@ rows, at JAX's own tolerances (metrics rtol 2e-4, atol 2e-5; weights 1e-3,
 
 import pytest
 
-from torch_port_mesh_common import assert_run_equal, run_meshes
+from torch_port_mesh_common import assert_run_equal, run_jobs
 
 PER_RANK = {"gather": dict(shuffle_mode="gather"), "a2a": dict(shuffle_mode="a2a")}
 
 
-@pytest.fixture(scope="module", params=list(PER_RANK))
-def per_rank(request, cpu_devices):
-    return request.param, run_meshes([(2, 1)], PER_RANK[request.param], single=False)[0]
+@pytest.fixture(scope="module")
+def per_rank(cpu_devices):
+    """Both modes from one initial state, their ranks in one spawn."""
+    return run_jobs([(2, 1, options) for options in PER_RANK.values()])[0]
 
 
-def test_shuffled_bn_step_equals_jax(per_rank):
-    mode, by_mesh = per_rank
-    ref, ranks = by_mesh[2, 1]
+@pytest.mark.parametrize("mode", list(PER_RANK))
+def test_shuffled_bn_step_equals_jax(per_rank, mode):
+    ref, ranks = per_rank[2, 1, tuple(sorted(PER_RANK[mode].items()))]
     for r, got in enumerate(ranks):
         assert_run_equal(got, ref, what=f"{mode} rank {r}")

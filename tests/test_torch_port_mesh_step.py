@@ -19,7 +19,7 @@ MESHES = [(2, 1), (1, 2)]
 
 @pytest.fixture(scope="module")
 def runs(cpu_devices):
-    return run_meshes(MESHES, OPTIONS)
+    return run_meshes(MESHES, OPTIONS, one_device=("port",))
 
 
 @pytest.mark.parametrize("md,mq", MESHES)
@@ -28,7 +28,7 @@ def test_mesh_step(runs, md, mq, against):
     by_mesh, single = runs
     ref, ranks = by_mesh[md, mq]
     for r, got in enumerate(ranks):
-        assert_run_equal(got, ref if against == "jax" else single[0], what=f"rank {r}")
+        assert_run_equal(got, ref if against == "jax" else single["port"], what=f"rank {r}")
 
 
 def test_draws_are_keyed_by_global_row():

@@ -14,7 +14,7 @@ OPTIONS = dict(norm_kind="groupnorm")
 
 @pytest.fixture(scope="module")
 def runs(cpu_devices):
-    return run_meshes([(2, 2)], OPTIONS)
+    return run_meshes([(2, 2)], OPTIONS, one_device=("port",))
 
 
 @pytest.mark.parametrize("against", ["jax", "one device"])
@@ -22,4 +22,4 @@ def test_mesh_step_2x2(runs, against):
     by_mesh, single = runs
     ref, ranks = by_mesh[2, 2]
     for r, got in enumerate(ranks):
-        assert_run_equal(got, ref if against == "jax" else single[0], what=f"rank {r}")
+        assert_run_equal(got, ref if against == "jax" else single["port"], what=f"rank {r}")

@@ -14,12 +14,12 @@ SYNC = dict(shuffle_mode="a2a", sync_bn=True)
 
 @pytest.fixture(scope="module")
 def synced(cpu_devices):
-    return run_meshes([(2, 1)], SYNC, against_jax=False)
+    return run_meshes([(2, 1)], SYNC, one_device=("port", "jax"), against_jax=False)
 
 
 @pytest.mark.parametrize("against", ["port", "jax"])
 def test_sync_bn_step_equals_the_one_device_step(synced, against):
-    by_mesh, (port, jax_one) = synced
+    by_mesh, single = synced
     _, ranks = by_mesh[2, 1]
     for r, got in enumerate(ranks):
-        assert_run_equal(got, port if against == "port" else jax_one, what=f"rank {r}")
+        assert_run_equal(got, single[against], what=f"rank {r}")

@@ -2,8 +2,9 @@
 ``--test-first``, saves at the epoch boundaries, a finished run that trains
 nothing more, a resume when ``--epochs`` grows, and a crash that saves and
 exits 1. Beside it: the prefill's draws per call, the jigsaw warm-up's
-both-sides step, the flags the port refuses, the multi-GPU flags on one
-process, and the end-task solvers it builds."""
+both-sides step, the flag the port refuses, the remat and reference-weight
+flags, the multi-GPU flags on one process, and the end-task solvers it
+builds."""
 
 import os
 
@@ -173,13 +174,53 @@ def test_jigsaw_warmup_builds_the_both_sides_step(tmp_path, sides):
         s.end()
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["--remat"], "item 5"), (["--pretrained-weights-path", "w.pt"], "item 6"),
-    (["--use-imagenet-weights"], "item 6"), (["--native-decode"], "item 6")])
+@pytest.mark.parametrize("extra,item", [(["--native-decode"], "item 6")])
 def test_flags_of_what_is_not_ported_are_refused(tmp_path, extra, item):
     args = arg_parser.parse_args(_argv(tmp_path, *extra))
     with pytest.raises(ValueError, match=f"ROADMAP.md §1 {item}"):
         VinceSolver(args)
+
+
+@pytest.mark.parametrize("flag", ["--remat", "--pretrained-weights-path",
+                                  "--use-imagenet-weights"])
+def test_ported_flags_build_what_jax_builds(tmp_path, flag):
+    """``--remat`` reaches the step's config and both encoders' backbones;
+    ``--pretrained-weights-path`` loads the file's weights into the query
+    encoder and the key encoder copies them; ``--use-imagenet-weights``
+    without a path that exists loads nothing (JAX loads a file only if it
+    exists). The end-task solvers take each flag and ignore it, as JAX's do."""
+    from vince_tpu_torch.models.vince_model import VinceEncoder
+    from vince_tpu_torch.solvers.vince_step import init_vince_state
+    from vince_tpu_torch.utils.torch_convert import (
+        convert_vince_state_dict, export_vince_state_dict)
+
+    extra = [flag]
+    if flag == "--pretrained-weights-path":
+        encoder = VinceEncoder("ResNet18", 16)
+        encoder.reset_parameters(torch.Generator().manual_seed(1))
+        torch.save(export_vince_state_dict(encoder.state_dict()), tmp_path / "w.pt")
+        extra.append(str(tmp_path / "w.pt"))
+    argv = _argv(tmp_path, "--disable-dataloader", "--no-restore", *extra)
+    solver = VinceSolver(arg_parser.parse_args(argv))
+    try:
+        state = solver.state
+        assert solver.cfg.remat == (flag == "--remat")
+        assert state.model.backbone.remat == state.key_model.backbone.remat == solver.cfg.remat
+        if flag == "--pretrained-weights-path":
+            want = convert_vince_state_dict(torch.load(tmp_path / "w.pt", weights_only=True))
+        else:
+            want = init_vince_state(0, solver.cfg, solver.optimizer,
+                                    device="cpu").model.state_dict()
+        for model in (state.model, state.key_model):
+            got = model.state_dict()
+            assert sorted(got) == sorted(want)
+            assert all(torch.equal(got[k], v) for k, v in want.items())
+    finally:
+        solver.end()
+    argv[argv.index("--solver") + 1] = "EndTaskImagenetSolver"
+    end_task = solver_runner.get_solver_class("EndTaskImagenetSolver")(
+        arg_parser.parse_args(argv))
+    end_task.end()
 
 
 @pytest.mark.parametrize("extra", [

@@ -28,14 +28,20 @@ FOLDS = ("none", "expand")
 RTOL, ATOL = 1e-3, 1e-4
 
 
-def _jax_sync(bn_fold, images):
+def _jax_variables(images):
+    """The encoder's variables from ``PRNGKey(0)``, once for both folds: the
+    fold changes the arithmetic, not the variables (flax draws each from its
+    module's name)."""
+    model = JaxEncoder(backbone_name="ResNet18", embed_size=EMBED)
+    return jax.jit(model.init)({"params": jax.random.PRNGKey(0)}, jnp.asarray(images))
+
+
+def _jax_sync(bn_fold, images, variables):
     """JAX's encoder: the variables, and the sync-BN forward over 4 devices
     (embeddings and the moved batch stats, as port names)."""
     x = jnp.asarray(images)
     model = JaxEncoder(backbone_name="ResNet18", embed_size=EMBED, bn_fold=bn_fold,
                        bn_axis_name=DATA_AXIS)
-    variables = JaxEncoder(backbone_name="ResNet18", embed_size=EMBED, bn_fold=bn_fold).init(
-        {"params": jax.random.PRNGKey(0)}, x)
 
     def local(params, stats, imgs):
         out, mut = model.apply({"params": params, "batch_stats": stats}, imgs, train=True,
@@ -63,8 +69,9 @@ def sides(cpu_devices):
     with torch.no_grad():
         block_w *= (sync_bn_block()(torch.from_numpy(block_x)) > 1e-2).numpy()
     jax_out, state_dicts, single = {}, {}, {}
+    variables = _jax_variables(images)
     for bn_fold in FOLDS:
-        tree, emb, moved = _jax_sync(bn_fold, images)
+        tree, emb, moved = _jax_sync(bn_fold, images, variables)
         jax_out[bn_fold] = (emb, moved)
         state_dicts[bn_fold] = {k: np.array(v) for k, v in
                                 flax_to_state_dict(tree["params"], tree["batch_stats"]).items()}

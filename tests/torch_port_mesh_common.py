@@ -7,6 +7,8 @@ Both packages read the batches as the augmented images (``_augment_sources``
 is replaced on each side) and take one fixed shuffled-BN permutation (with
 its a2a stages)."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -62,6 +64,32 @@ def patch(mp: pytest.MonkeyPatch, p):
     mp.setattr(tvs, "make_shuffle_perm", lambda gen, n: torch.from_numpy(perm))
 
 
+# options that leave the initial state as it is: the states of one initial
+# key differ only by the model's structure
+_STATE_NEUTRAL = ("shuffle_mode", "sync_bn")
+
+
+@functools.lru_cache(maxsize=None)
+def _initial(structure):
+    options = dict(structure)
+    cfg = jvs.VinceConfig(sources=(jvs.SourceSpec(**SOURCE),), compute_dtype=jnp.float32,
+                          **config(**options))
+    opt = jvs.build_vince_optimizer(optax.constant_schedule(0.05))
+    init = jax.device_get(jax.jit(lambda key: jvs.init_vince_state(key, cfg, opt))(
+        jax.random.PRNGKey(0)))
+    return init, port_tree(init, options)
+
+
+def initial_state(options):
+    """JAX's initial state from ``PRNGKey(0)`` on the host, and as the port's
+    whole-state tree, made once per process for the options that shape it
+    (the mesh's sizes, the shuffle's mode and sync-BN do not): every mesh of
+    a file starts from the same arrays. Callers read them and copy them into
+    their own states."""
+    return _initial(tuple(sorted((k, v) for k, v in options.items()
+                                 if k not in _STATE_NEUTRAL)))
+
+
 def jax_run(md, mq, options, what=("train",)):
     """JAX on an md x mq mesh of the virtual devices: the initial state as the
     port's tree, and the train steps' metrics, final weights (port names) and
@@ -71,10 +99,10 @@ def jax_run(md, mq, options, what=("train",)):
                           data_axis_size=md, queue_axis_size=mq, **config(**options))
     opt = jvs.build_vince_optimizer(optax.constant_schedule(0.05))
     mesh = make_mesh(MeshSpec(md, mq))
-    init = jax.jit(lambda key: jvs.init_vince_state(key, cfg, opt))(jax.random.PRNGKey(0))
-    state = jvs.shard_state(init, mesh)
+    init, tree = initial_state(options)
+    state = jvs.shard_state(jax.tree_util.tree_map(jnp.asarray, init), mesh)
     bs = batches()
-    out = {"tree": port_tree(init, options)}
+    out = {"tree": tree}
 
     def device_batch(b):
         return ({k: jnp.asarray(v) for k, v in b.items()},)
@@ -148,25 +176,50 @@ def assert_run_equal(got, ref, rows=STEPS * BATCH, what=""):
                                err_msg=f"{what} queue")
 
 
-def run_meshes(meshes, options, single=True, against_jax=True):
+def run_meshes(meshes, options, one_device=(), against_jax=True):
     """JAX's run and the ranks' (``torch_port_ranks.mesh_step_rank``) on each
-    (md, mq) mesh, from JAX's initial state; with ``single``, the port's and
-    JAX's one-device runs too. Without ``against_jax`` JAX makes only the
-    initial state on the meshes."""
-    from torch_port_ranks import mesh_step_rank, spawn
+    (md, mq) mesh of ``meshes``, all from JAX's initial state; the ranks of
+    meshes of one size run in one spawn. ``one_device`` names the one-device
+    runs to add: "port" and "jax". Without ``against_jax`` JAX makes only the
+    initial state. Returns the runs by mesh and the one-device runs by name."""
+    out, single = run_jobs([(md, mq, options) for md, mq in meshes], one_device, against_jax)
+    return {key[:2]: run for key, run in out.items()}, single
+
+
+def run_jobs(jobs, one_device=(), against_jax=True):
+    """``run_meshes`` for (md, mq, options) jobs, each its own options; the
+    one-device runs take the first job's. The results by (md, mq, the
+    options' items)."""
+    from torch_port_ranks import mesh_jobs_rank, spawn
 
     mp = pytest.MonkeyPatch()
     try:
-        out = {}
-        for md, mq in meshes:
+        refs, by_world = {}, {}
+        for md, mq, options in jobs:
             patch(mp, perms(md))
-            ref = jax_run(md, mq, options, what=("train",) if against_jax else ())
-            out[md, mq] = ref, spawn(mesh_step_rank, md * mq, md, mq,
-                                     dict(config(**options), source=SOURCE), ref["tree"],
-                                     batches(), perms(md))
-        if not single:
-            return out, None
+            refs[md, mq, _key(options)] = jax_run(md, mq, options,
+                                                  what=("train",) if against_jax else ())
+            by_world.setdefault(md * mq, []).append((md, mq, options))
+        out = {}
+        for world, group in by_world.items():
+            ranks = spawn(mesh_jobs_rank, world, [
+                (md, mq, dict(config(**options), source=SOURCE),
+                 refs[md, mq, _key(options)]["tree"], batches(), perms(md))
+                for md, mq, options in group])
+            for i, (md, mq, options) in enumerate(group):
+                key = (md, mq, _key(options))
+                out[key] = refs[key], [rank[i] for rank in ranks]
+        single = {}
+        options = jobs[0][2]
         patch(mp, perms(1))
-        return out, (port_single(ref["tree"], options), jax_run(1, 1, options))
+        if "port" in one_device:
+            single["port"] = port_single(initial_state(options)[1], options)
+        if "jax" in one_device:
+            single["jax"] = jax_run(1, 1, options)
+        return out, single
     finally:
         mp.undo()
+
+
+def _key(options):
+    return tuple(sorted(options.items()))

@@ -263,6 +263,13 @@ def mesh_step_rank(rank, world, md, mq, cfg_kwargs, tree, batches, perms, what=(
     return _numpy(out)
 
 
+def mesh_jobs_rank(rank, world, jobs):
+    """``mesh_step_rank`` for each of ``jobs`` (its arguments after the
+    rank's and the world's), one after the other in one process group: the
+    meshes of one world's size share the processes' start."""
+    return [mesh_step_rank(rank, world, *job) for job in jobs]
+
+
 def _torch(x):
     if isinstance(x, np.ndarray):
         return torch.from_numpy(x)

@@ -10,10 +10,9 @@ Where the port differs:
 - ``--distributed`` starts one process per GPU over ``torch.distributed``
   (``nccl``; ``gloo`` with ``--platform cpu``), from the three explicit flags
   or from ``torchrun``'s environment;
-- the flags of what the port does not have yet parse, and the solver refuses
-  them when it is built, naming the ``ROADMAP.md`` item that ports them:
-  ``--remat``, ``--pretrained-weights-path``, ``--use-imagenet-weights`` and
-  ``--native-decode``.
+- ``--native-decode``, which the port does not have yet, parses, and the
+  solver refuses it when it is built, naming the ``ROADMAP.md`` item that
+  ports it.
 
 The end-task solvers (``EndTaskImagenetSolver``, ``EndTaskSunSceneSolver``,
 ``EndTaskKinetics400Solver``, ``EndTaskTrackingSolver``) take the same flags,
@@ -267,8 +266,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--remat", action="store_true",
-        help="Recompute the backbone's blocks in the backward (refused: "
-        "ROADMAP.md §1 item 5).",
+        help="Recompute the query encoder's residual blocks (MBConvs) in the "
+        "backward instead of keeping their activations: less memory, a second "
+        "forward of each block.",
     )
     parser.add_argument(
         "--sync-bn", action="store_true",
@@ -276,8 +276,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--pretrained-weights-path", type=str, default="",
-        help="A torch state dict to start the backbone from (refused: "
-        "ROADMAP.md §1 items 6 and 10).",
+        help="A reference torch state dict (a VinceModel's or a torchvision "
+        "ResNet's) to start both encoders from, loaded if the file exists.",
     )
     parser.add_argument(
         "--cifar-data-path", type=str,

@@ -27,7 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vince_tpu_torch.models.resnet import BatchNorm, Conv1x1, _lecun_normal_, folded_dot_bn
+from vince_tpu_torch.models.resnet import (
+    BatchNorm, Conv1x1, _lecun_normal_, folded_dot_bn, remat_block)
 from vince_tpu_torch.ops.kernels import depthwise_kernel
 
 # (expand_ratio, out_channels, num_repeats, stride, kernel_size) per stage
@@ -212,12 +213,12 @@ class EfficientNet(nn.Module):
 
     def __init__(self, variant: str = "b0", bn_fold: str = "none", dw_kind: str = "conv",
                  se_kind: str = "mul", dtype=torch.float32, in_channels: int = 3,
-                 axis_name: Optional[str] = None):
+                 axis_name: Optional[str] = None, remat: bool = False):
         super().__init__()
         if bn_fold not in ("none", "expand", "all"):
             raise ValueError(f"bn_fold={bn_fold!r}; choices: none, expand, all")
         width, depth = _SCALING[variant]
-        self.dtype = dtype
+        self.dtype, self.remat = dtype, remat  # remat: each MBConv recomputed in the backward
         self.fold = bn_fold != "none"  # "all" behaves like "expand" here
         # axis_name: the mesh axis that train-mode statistics are summed over
         bn = functools.partial(BatchNorm, momentum=BN_MOMENTUM, eps=BN_EPSILON,
@@ -246,7 +247,7 @@ class EfficientNet(nn.Module):
     def forward(self, x):
         x = F.silu(self._bn0(self._conv_stem(x.to(self.dtype))).to(self.dtype))
         for block in self._blocks:
-            x = block(x)
+            x = remat_block(block, x) if self.remat else block(x)
         if self.fold:
             return folded_dot_bn(x, self._conv_head, self._bn1, self.dtype, act=F.silu)
         return F.silu(self._bn1(self._conv_head(x)))

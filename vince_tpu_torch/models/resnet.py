@@ -39,6 +39,10 @@ axis has one member and nothing is summed.
 filter to it), "conv7" in float32, as flax promotes the images to the f32
 filter of its ``nn.Conv``; the stem's BatchNorm casts back to the compute
 dtype either way.
+
+``remat`` recomputes each residual block's activations in the backward
+(``remat_block``, flax's ``nn.remat`` of the block class): less memory, the
+block's forward run twice, the running averages moved once.
 """
 
 import contextlib
@@ -49,10 +53,11 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vince_tpu_torch.ops.kernels import folded_dot_kernel
 from vince_tpu_torch.parallel.collectives import group_size, psum
-from vince_tpu_torch.parallel.mesh import axis_group
+from vince_tpu_torch.parallel.mesh import axis_group, bind, bound_mesh
 
 
 def _lecun_normal_(t: torch.Tensor, fan_in: int, generator=None):
@@ -216,6 +221,29 @@ def unrecorded_batch_stats(*modules: nn.Module):
     finally:
         for bn, rec in zip(bns, before):
             bn.record_stats = rec
+
+
+def remat_block(block: nn.Module, x):
+    """``block(x)`` with its activations recomputed in the backward instead
+    of kept (flax's ``nn.remat``), where autograd records the forward; a
+    forward under ``no_grad`` (the key encoder's, the eval paths') runs the
+    block as it is. The recompute runs under the mesh bound at the forward
+    (the backward may run on autograd's own threads, which see none, and a
+    sync-BN block must sum its statistics there too) and records no batch
+    statistics: the forward moved the running averages once, and JAX's remat
+    drops the recompute's mutation. The blocks draw no random numbers, so the
+    RNG state is not stashed, which a CUDA graph capture could not take."""
+    if not torch.is_grad_enabled():
+        return block(x)
+    mesh = bound_mesh()
+
+    @contextlib.contextmanager
+    def recompute():
+        with bind(mesh), unrecorded_batch_stats(block):
+            yield
+
+    return checkpoint(block, x, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), recompute()))
 
 
 def _fold_affine(bn: BatchNorm, mu, var):
@@ -395,7 +423,7 @@ class ResNet(nn.Module):
                  bn_fold: str = "none", fold_kernel: bool = False, dtype=torch.float32,
                  in_channels: int = 3, norm_kind: str = "batchnorm", stem_kind: str = "conv7",
                  replace_stride_with_dilation: Sequence[bool] = (False, False, False),
-                 axis_name: Optional[str] = None):
+                 axis_name: Optional[str] = None, remat: bool = False):
         super().__init__()
         if bn_fold not in ("none", "expand", "all"):
             raise ValueError(f"bn_fold={bn_fold!r}; choices: none, expand, all")
@@ -405,7 +433,7 @@ class ResNet(nn.Module):
         if norm_kind not in norms or stem_kind not in stems:
             raise ValueError(f"norm_kind={norm_kind!r}, stem_kind={stem_kind!r}; choices: "
                              f"{sorted(norms)}, {sorted(stems)}")
-        self.dtype = dtype
+        self.dtype, self.remat = dtype, remat
         norm = norms[norm_kind]
         self.conv1 = stems[stem_kind](in_channels, num_filters)
         self.bn1 = norm(num_filters)
@@ -440,7 +468,8 @@ class ResNet(nn.Module):
         x = torch.relu(self.bn1(self.conv1(x.to(self.dtype))).to(self.dtype))
         x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1).permute(0, 2, 3, 1)
         for stage in range(self.num_stages):
-            x = getattr(self, f"layer{stage + 1}")(x)
+            for block in getattr(self, f"layer{stage + 1}"):
+                x = remat_block(block, x) if self.remat else block(x)
         return x
 
 

@@ -32,11 +32,13 @@ class VinceEncoder(nn.Module):
                  use_imagenet_decoders: bool = False, num_imagenet_classes: int = 1000,
                  dtype=torch.float32, norm_kind: str = "batchnorm", stem_kind: str = "conv7",
                  bn_fold: str = "none", fold_kernel: bool = False, dw_kind: str = "conv",
-                 se_kind: str = "mul", bn_axis_name: Optional[str] = None):
+                 se_kind: str = "mul", bn_axis_name: Optional[str] = None,
+                 remat: bool = False):
         super().__init__()
         # bn_axis_name: the mesh axis that the backbone's train-mode BatchNorm
-        # statistics are summed over (sync-BN); None keeps them per device
-        kwargs = {"axis_name": bn_axis_name}
+        # statistics are summed over (sync-BN); None keeps them per device.
+        # remat: the backbone's blocks recomputed in the backward
+        kwargs = {"axis_name": bn_axis_name, "remat": remat}
         if "ResNet" in backbone_name:
             kwargs.update(fold_kernel=fold_kernel,  # K2 at the bottleneck sites
                           norm_kind=norm_kind, stem_kind=stem_kind)

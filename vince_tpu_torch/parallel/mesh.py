@@ -113,10 +113,15 @@ def bind(mesh: Optional[Mesh]):
         _bound.mesh = previous
 
 
+def bound_mesh() -> Optional[Mesh]:
+    """The mesh bound on this thread, or None."""
+    return getattr(_bound, "mesh", None)
+
+
 def axis_group(axis_name: Optional[str]):
     """The process group of ``axis_name`` in the bound mesh; None (an axis of
     one member, no collective) without a name or a bound mesh."""
-    mesh = getattr(_bound, "mesh", None)
+    mesh = bound_mesh()
     if axis_name is None or mesh is None:
         return None
     return mesh.group(axis_name)

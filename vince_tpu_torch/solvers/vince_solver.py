@@ -65,6 +65,8 @@ from vince_tpu_torch.solvers.vince_step import (
 )
 from vince_tpu_torch.utils.checkpoint import CheckpointManager
 from vince_tpu_torch.utils.meters import AverageMeter, Stopwatch
+from vince_tpu_torch.utils.torch_convert import (
+    convert_vince_state_dict, init_from_reference, load_torch_checkpoint)
 
 PROFILE_STEPS = (5, 8)  # the global steps a --profile-dir trace starts and stops at
 
@@ -73,12 +75,8 @@ def refused_flags(args) -> List[str]:
     """What the flags ask for that the port does not have yet, each with the
     ``ROADMAP.md`` item that ports it."""
     out = []
-    for flag, item in (("remat", 5), ("native_decode", 6), ("use_imagenet_weights", 6)):
-        if getattr(args, flag, False):
-            out.append(f"--{flag.replace('_', '-')} (ROADMAP.md §1 item {item})")
-    if getattr(args, "pretrained_weights_path", ""):
-        out.append("--pretrained-weights-path (ROADMAP.md §1 item 6, with item 10's "
-                   "torch_convert)")
+    if getattr(args, "native_decode", False):
+        out.append("--native-decode (ROADMAP.md §1 item 6)")
     return out
 
 
@@ -241,6 +239,7 @@ class VinceSolver(BaseSolver):
             # the streamed kernel pays at large queues: on by itself above 65536
             use_fused_infonce=getattr(args, "use_fused_infonce", False)
             or args.vince_queue_size > 65536,
+            remat=getattr(args, "remat", False),
             stem_kind=getattr(args, "stem_kind", "s2d"),
             bn_fold=getattr(args, "bn_fold", "expand"),
             norm_kind=getattr(args, "norm_kind", "batchnorm"),
@@ -263,6 +262,13 @@ class VinceSolver(BaseSolver):
         mesh = self.mesh
         self.state = init_vince_state(self.seed, self.cfg, self.optimizer, device=self.device,
                                       mesh=mesh)
+        weights_path = getattr(args, "pretrained_weights_path", "")
+        if (getattr(args, "use_imagenet_weights", False) or weights_path) \
+                and os.path.exists(weights_path):
+            # a reference (torchvision / VinceModel) checkpoint as the encoders' start
+            init_from_reference(self.state,
+                                convert_vince_state_dict(load_torch_checkpoint(weights_path)))
+            print(f"Initialized backbone from torch weights: {weights_path}")
         self.ckpt = CheckpointManager(
             args.checkpoint_dir,
             args.long_save_checkpoint_dir,

@@ -93,8 +93,7 @@ class SourceSpec:
 
 @dataclasses.dataclass(frozen=True)
 class VinceConfig:
-    """Static configuration of the pretraining step: the JAX config's fields
-    less ``remat``, which is not ported."""
+    """Static configuration of the pretraining step: the JAX config's fields."""
 
     sources: Tuple[SourceSpec, ...]
     backbone: str = "ResNet18"
@@ -117,6 +116,9 @@ class VinceConfig:
     data_axis_size: int = 1
     queue_axis_size: int = 1
     sync_bn: bool = False  # BatchNorm statistics over the data axis, not per rank
+    # the query encoder's blocks recomputed in its backward, not kept
+    # (``models/resnet.py::remat_block``); the running averages move once
+    remat: bool = False
     use_fused_infonce: bool = False  # K1 for the queue sweep
     bn_fold: str = "expand"
     fold_kernel: bool = False  # K2 at the supported bottleneck sites (ResNet)
@@ -258,7 +260,7 @@ def build_encoder(cfg: VinceConfig) -> VinceEncoder:
                         dtype=cfg.compute_dtype, norm_kind=cfg.norm_kind,
                         stem_kind=cfg.stem_kind, bn_fold=cfg.bn_fold,
                         fold_kernel=cfg.fold_kernel, dw_kind=cfg.dw_kind, se_kind=cfg.se_kind,
-                        bn_axis_name=DATA_AXIS if cfg.sync_bn else None)
+                        bn_axis_name=DATA_AXIS if cfg.sync_bn else None, remat=cfg.remat)
 
 
 def _check_shuffle_mode(cfg: VinceConfig) -> None:
