@@ -115,7 +115,33 @@ Phases:
      iterations), and ``export_reference_checkpoint`` of the converted
      directory back to the written dict, bit for bit. The retrieval probe
      (64 val-split videos x 6 frames) on phase 9's latest checkpoint and
-     with ``--no-restore``.
+     with ``--no-restore``;
+ 14. the file-backed path: trees of JPEGs written from the seed by the
+     port's texture generator through ``cv2.imwrite`` (R2V2 256 + 64 videos
+     x 6 frames of 480x360, ImageNet 1000 classes x 2 + 600 val of 500x375,
+     SUN-397's lists, a Kinetics-400 frame cache with 400 labels, GOT-10k
+     and OTB-2015 sequences); phase 9's ResNet50 CLI on the R2V2 tree for 16
+     iterations with the cv2 read and 16 with ``--native-decode`` (nvJPEG
+     and the JPEG kernels on the card in the loader's threads; K1 1 and K2
+     26 a step at the eager calls and the capture, the JPEG kernels' launches,
+     finite losses, the meters, the loader alone, the peak memory; with
+     ``--native-decode`` no stream refused and no cv2 read); phase 10's
+     three end tasks on their trees with ``--native-decode`` (4 iterations
+     and the val pass from phase 9's checkpoint, finite losses, no stream
+     refused and no cv2 read);
+     tracking on the GOT-10k tree (2 iterations, cv2 reads) and
+     ``run_end_task_eval`` on the OTB-2015 tree (its scores, the tracker's
+     frames/s); ``tools/extract_embeddings.py`` on the R2V2 val tree with
+     both decoders (the rows, their cosines >= 0.999, every file decoded
+     by nvJPEG).
+
+Phase 2 also holds the JPEG path's two kernels (``csrc/jpeg_decode.cu``:
+libjpeg's chroma upsampling and YCbCr -> RGB, and the resize; the
+counterparts of host C++, no TPU kernel) to their plain versions (bit for
+bit) on 160 frames of 480x360 decoded by nvJPEG, and nvJPEG + the kernels to cv2 + the
+plain resize with the JAX tests' tolerances, on those frames and on ragged
+streams (257x191, grayscale, 4:4:4, progressive; a truncated JPEG and a PNG
+refused).
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -778,6 +804,267 @@ def check_other_shapes(dev):
     return shard_times
 
 
+# the JPEG kernels' check: a batch of 160 frames of 480x360 (R2V2's frames: the
+# video cacher's longest side is 480) decoded on the card, to 256x256
+RESIZE_BATCH, RESIZE_FRAME, RESIZE_CANVAS = 160, (360, 480), 256
+TEXTURE_POOL = 16  # base scenes of the texture generator behind every image of phase 14
+
+
+def texture_pool(seed, size=512):
+    """``TEXTURE_POOL`` scenes of the port's texture generator (the 2x2
+    equalised gratings of ``SyntheticTextureVideoDataset``), size x size RGB."""
+    from vince_tpu_torch.data.synthetic_dataset import SyntheticTextureVideoDataset as T
+    from vince_tpu_torch.data.synthetic_dataset import _texture_scene
+
+    return [_texture_scene(np.random.RandomState(seed + i), size, T.GRID, T.N_ANGLES,
+                           T.FREQS, T.C1, T.C2) for i in range(TEXTURE_POOL)]
+
+
+def texture_image(pool, rng, hw, shift=(0, 0)):
+    """An RGB image of ``hw`` from the pool: a scene drawn by ``rng``, rolled
+    by a drawn offset (plus ``shift``), cut to ``hw``, a drawn gain."""
+    scene = pool[rng.randint(len(pool))]
+    dy, dx = rng.randint(0, scene.shape[0], 2) + np.asarray(shift)
+    gain = rng.uniform(0.8, 1.1)
+    img = np.roll(scene, (int(dy), int(dx)), axis=(0, 1))[: hw[0], : hw[1]]
+    return np.clip(img * gain, 0, 255).astype(np.uint8)
+
+
+def encode_jpeg(rgb, **params):
+    import cv2
+
+    flags = []
+    for key, value in params.items():
+        flags += [getattr(cv2, key), value]
+    ok, enc = cv2.imencode(".jpg", np.ascontiguousarray(rgb[:, :, ::-1]), flags)
+    if not ok:
+        fail("cv2.imencode failed")
+    return enc.tobytes()
+
+
+def ragged_streams(pool, seed=15):
+    """The streams off the frames' shape: (name, bytes, whether the card's
+    path takes it)."""
+    import cv2
+
+    rng = np.random.RandomState(seed)
+    whole = encode_jpeg(texture_image(pool, rng, (360, 480)))
+    gray = cv2.cvtColor(texture_image(pool, rng, (240, 320)), cv2.COLOR_RGB2GRAY)
+    return [
+        ("257x191", encode_jpeg(texture_image(pool, rng, (191, 257))), True),
+        ("grayscale", cv2.imencode(".jpg", gray)[1].tobytes(), True),
+        ("4:4:4", encode_jpeg(texture_image(pool, rng, (240, 320)),
+                              IMWRITE_JPEG_SAMPLING_FACTOR=0x111111), True),
+        ("progressive", encode_jpeg(texture_image(pool, rng, (240, 320)),
+                                    IMWRITE_JPEG_PROGRESSIVE=1), True),
+        ("truncated", whole[: len(whole) // 3], False),
+        ("png", cv2.imencode(".png", texture_image(pool, rng, (120, 160)))[1].tobytes(), False),
+    ]
+
+
+def jax_would_scale(h, w, canvas):
+    """Whether the JAX package's native decoder (decode.cc:138-152) decodes at
+    a DCT scale m/8 < 1 for this image and canvas: then the JAX tests'
+    tolerance against cv2 is a mean < 3, else a mean < 1 and a 99th
+    percentile <= 4."""
+    return any((h * m + 7) // 8 >= canvas and (w * m + 7) // 8 >= canvas for m in range(1, 8))
+
+
+def decode_against_cv2(what, got, data, canvas):
+    """The card's canvas against cv2's decode and the plain resize on the CPU,
+    with the JAX tests' tolerances; (mean, p99, max) of |difference|."""
+    import cv2
+
+    from vince_tpu_torch.ops.kernels.jpeg_kernels import resize_image_plain
+
+    bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    ref = resize_image_plain(torch.from_numpy(np.ascontiguousarray(bgr[:, :, ::-1])),
+                             canvas).numpy()
+    d = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+    stats = (float(d.mean()), float(np.percentile(d, 99)), int(d.max()))
+    scaled = jax_would_scale(bgr.shape[0], bgr.shape[1], canvas)
+    if not (stats[0] < 3 if scaled else stats[0] < 1 and stats[1] <= 4):
+        fail(f"{what}: nvJPEG + the kernel against cv2 + the plain resize: mean "
+             f"{stats[0]:.4f}, p99 {stats[1]}, the JAX tests' tolerance "
+             f"{'mean < 3' if scaled else 'mean < 1, p99 <= 4'}")
+    return stats
+
+
+def ragged_files_read(dev, ragged):
+    """The ragged streams written as files and read by a dataset with
+    ``--native-decode`` on the card (canvas 256): the streams the card
+    refuses take the cv2 read, one count each in ``native.counts``."""
+    import argparse as ap
+
+    from vince_tpu_torch import native
+    from vince_tpu_torch.data.base_dataset import BaseDataset
+
+    class Reader(BaseDataset):
+        def __len__(self):
+            return 0
+
+        def __getitem__(self, idx):
+            return None
+
+    reader = Reader(ap.Namespace(input_width=224, native_decode=True, platform=dev.type))
+    with tempfile.TemporaryDirectory() as d:
+        paths = []
+        for name, data, _ in ragged:
+            paths.append(os.path.join(d, name.replace(":", "") + (".png" if name == "png"
+                                                                   else ".jpg")))
+            with open(paths[-1], "wb") as f:
+                f.write(data)
+        native.reset_counts()
+        images = reader.read_images(paths)
+    counts = dict(native.counts)
+    refused = [name for name, _, takes in ragged if not takes]
+    shapes = {name: None if img is None else img.shape for (name, _, _), img in zip(ragged, images)}
+    if counts["cv2_reads"] != len(refused) or shapes["png"] != (256, 256, 3) or any(
+            shapes[name] != (256, 256, 3) for name, _, takes in ragged if takes):
+        fail(f"the ragged files read with --native-decode: {shapes}, counts {counts}")
+    log(f"  the ragged files read by a dataset with --native-decode: {counts['cv2_reads']} cv2 "
+        f"reads ({', '.join(refused)}); canvases {shapes}")
+    return {"cv2_reads": counts["cv2_reads"], "shapes": {k: v and list(v) for k, v in
+                                                          shapes.items()}}
+
+
+def check_jpeg_kernels(dev):
+    """The JPEG path's kernels on 160 frames of 480x360 decoded by nvJPEG:
+    ``ycc_to_rgb`` against its plain version on the same planes (bit-equal)
+    and ``resize_canvas`` against its plain version on the same RGB pixels
+    (bit-equal; the bytes that differ counted), each timed beside
+    its plain version, a library call where one computes the same function,
+    and its bound; the decoded RGB against cv2's decode; nvJPEG + the kernels
+    against cv2 + the plain resize on the batch and on the ragged streams
+    (the JAX tests' tolerances), the truncated stream and the PNG refused; the
+    decode's times on the card and cv2's on this host."""
+    import cv2
+    import torch.nn.functional as F
+
+    from vince_tpu_torch import native
+    from vince_tpu_torch.ops.kernels.jpeg_kernels import (
+        _reference_resize, _reference_ycc_to_rgb, resize_canvas, ycc_to_rgb)
+
+    n, (h, w), c = RESIZE_BATCH, RESIZE_FRAME, RESIZE_CANVAS
+    pool = texture_pool(14)
+    rng = np.random.RandomState(14)
+    items = [encode_jpeg(texture_image(pool, rng, (h, w))) for _ in range(n)]
+    decoder = native.DecodePool(dev)._decoder
+    log(f"JPEG path: {n} JPEGs of {w}x{h} (4:2:0, mean {np.mean([len(b) for b in items]):.0f} "
+        f"bytes) decoded by nvJPEG, to {c}x{c}")
+    native.reset_counts()
+    planes, ycc_meta, rgb_total, pixels, meta, rows = decoder.decode_planes(items)
+    decoder.stream.synchronize()
+    backends = dict(native.counts)
+    if rows != list(range(n)):
+        fail(f"nvJPEG decoded {len(rows)} of the {n} frames ({backends})")
+    rgb = ycc_to_rgb(planes, ycc_meta, rgb_total, pixels)
+    rgb_plain = _reference_ycc_to_rgb(planes, ycc_meta, rgb_total)
+    ycc_err = int((rgb.int() - rgb_plain.int()).abs().max())
+    log(f"  ycc_to_rgb against the plain version on the same planes: max |difference| {ycc_err} "
+        f"(bound 0)")
+    if ycc_err:
+        fail("ycc_to_rgb disagrees with its plain version")
+    frames = rgb[: n * h * w * 3].view(n, h, w, 3)  # 480*360*3 is a multiple of the alignment
+    full = np.stack([cv2.cvtColor(cv2.imdecode(np.frombuffer(b, np.uint8), cv2.IMREAD_COLOR),
+                                  cv2.COLOR_BGR2RGB) for b in items])
+    d = np.abs(frames.cpu().numpy().astype(np.int16) - full.astype(np.int16))
+    log(f"  the decoded {w}x{h} RGB against cv2's decode: mean {d.mean():.4f}, p99 "
+        f"{np.percentile(d, 99)}, max {d.max()} (nvJPEG's IDCT against libjpeg's)")
+    plane_bytes = int(sum(hh * ww + 2 * ch * cw for _, hh, ww, cw, ch, *_ in ycc_meta.tolist()))
+    ycc_times = {"ms": time_ms(lambda: ycc_to_rgb(planes, ycc_meta, rgb_total, pixels)),
+                 "plain_ms": time_ms(lambda: _reference_ycc_to_rgb(planes, ycc_meta, rgb_total),
+                                     iters=5),
+                 "library_ms": None}
+    ycc_times["bound_ms"], ycc_bound_by = bound(plane_bytes + n * h * w * 3, 40 * n * h * w,
+                                                F32_FLOPS)
+    log(f"  ycc_to_rgb times: kernel {ycc_times['ms']:.4f} ms, plain {ycc_times['plain_ms']:.4f}, "
+        f"bound {ycc_times['bound_ms']:.4f} ({ycc_bound_by}; no single library call)")
+
+    got = resize_canvas(rgb, meta, c)
+    ref = _reference_resize(rgb, meta, c)
+    diff = (got.int() - ref.int()).abs()
+    max_err = int(diff.max())
+    log(f"  resize_canvas against the plain version on the same pixels: max |difference| "
+        f"{max_err}, {int((diff > 0).sum())} of {diff.numel()} bytes differ (bound 0)")
+    if max_err:
+        fail("resize_canvas disagrees with its plain version")
+
+    def library():
+        x = F.interpolate(frames.permute(0, 3, 1, 2).float(), size=(c, c), mode="bilinear",
+                          align_corners=False)
+        return x.round().clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1)
+
+    lib_gap = int((library().int() - got.int()).abs().max())
+    times = {"ms": time_ms(lambda: resize_canvas(rgb, meta, c)),
+             "plain_ms": time_ms(lambda: _reference_resize(rgb, meta, c), iters=5),
+             "library_ms": time_ms(library)}
+    times["bound_ms"], bound_by = bound(n * h * w * 3 + n * c * c * 3, 18 * n * c * c * 3,
+                                        F32_FLOPS)
+    log(f"  resize_canvas times: kernel {times['ms']:.4f} ms, plain {times['plain_ms']:.4f}, "
+        f"F.interpolate on a float copy {times['library_ms']:.4f} (its max |difference| from "
+        f"the kernel {lib_gap}), bound {times['bound_ms']:.4f} ({bound_by})")
+
+    worst = (0.0, 0.0, 0)
+    outs, ok = decoder.decode(items, c)
+    for i in range(n):
+        stats = decode_against_cv2(f"frame {i}", outs[i], items[i], c)
+        worst = tuple(max(a, b) for a, b in zip(worst, stats))
+    log(f"  nvJPEG + the kernels against cv2 + the plain resize over the {n} frames: worst "
+        f"mean {worst[0]:.4f}, p99 {worst[1]}, max {worst[2]} (JAX would decode these at a DCT "
+        f"scale: mean < 3; the port decodes at full size); decodes {backends}")
+    native.reset_counts()
+    ragged = ragged_streams(pool)
+    outs, ok = decoder.decode([b for _, b, _ in ragged], c)
+    for (name, data, takes), out, good in zip(ragged, outs, ok):
+        if bool(good) != takes:
+            fail(f"the {name} stream: ok {bool(good)}, expected {takes}")
+        if good:
+            stats = decode_against_cv2(name, out, data, c)
+            log(f"  {name}: against cv2 + the plain resize mean {stats[0]:.4f}, p99 {stats[1]}, "
+                f"max {stats[2]}")
+    log(f"  ragged streams' decodes {dict(native.counts)}; the truncated stream and the PNG "
+        f"refused (ok False)")
+    read = ragged_files_read(dev, ragged)
+
+
+    def decode_only():
+        decoder.decode_planes(items)
+        decoder.stream.synchronize()
+
+    def wall_ms(fn, reps=5):
+        fn()
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ms))
+
+    def cv2_batch():
+        for data in items:
+            rgb_host = cv2.cvtColor(cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR),
+                                    cv2.COLOR_BGR2RGB)
+            cv2.resize(rgb_host, (c, c), interpolation=cv2.INTER_LINEAR)
+
+    decode = {"nvjpeg_ms": wall_ms(decode_only),
+              "pool_ms": wall_ms(lambda: decoder.decode(items, c)),
+              "cv2_one_thread_ms": wall_ms(cv2_batch, reps=3)}
+    log(f"  a batch of {n}: nvJPEG's decode {decode['nvjpeg_ms']:.3f} ms (host clock to the "
+        f"stream's end), decode + both kernels + the copy to pinned host memory "
+        f"{decode['pool_ms']:.3f} ms; cv2's decode + resize on one host thread "
+        f"{decode['cv2_one_thread_ms']:.3f} ms")
+    del planes, ycc_meta, rgb, rgb_plain, meta, got, ref, frames
+    torch.cuda.synchronize()
+    common = {"route": "cuda", "source": "vince_tpu_torch/csrc/jpeg_decode.cu",
+              "note": "the JPEG path's counterpart of host C++ (no TPU kernel)",
+              "decode": decode, "backends": backends, "ragged_files": read, "check": "ok"}
+    return [{"name": "ycc_to_rgb", "replaces": "vince_tpu/native/decode.cc:151",
+             "max_abs_err": ycc_err, **ycc_times, "bound_by": ycc_bound_by, **common},
+            {"name": "resize_canvas", "replaces": "vince_tpu/native/decode.cc:54",
+             "max_abs_err": max_err, **times, "bound_by": bound_by, **common}]
+
+
 def profile_step(step, state, batch, path):
     """Trace one step with torch.profiler and write the device-time table."""
     from torch.profiler import ProfilerActivity, profile
@@ -846,11 +1133,13 @@ def wrappers():
     from vince_tpu_torch.ops.kernels.depthwise_kernel import depthwise_conv, depthwise_wgrad
     from vince_tpu_torch.ops.kernels.folded_dot_kernel import affine_relu_dot_moments
     from vince_tpu_torch.ops.kernels.infonce_kernel import queue_logsumexp
+    from vince_tpu_torch.ops.kernels.jpeg_kernels import resize_canvas, ycc_to_rgb
 
     return {"queue_logsumexp": queue_logsumexp,
             "affine_relu_dot_moments": affine_relu_dot_moments,
             "depthwise_conv": depthwise_conv, "depthwise_wgrad": depthwise_wgrad,
-            "affine_conv3x3_stats": affine_conv3x3_stats}
+            "affine_conv3x3_stats": affine_conv3x3_stats, "ycc_to_rgb": ycc_to_rgb,
+            "resize_canvas": resize_canvas}
 
 
 def reset_counts():
@@ -1635,6 +1924,10 @@ def check_cli_calls(what, rec, backbone, iterations, prefills):
         fail(f"{what}: {len(its)} iterations and {len(rec.of('fill_queue_repeat'))} prefills, "
              f"expected {iterations} and {prefills}")
     for c in rec.calls:
+        # the JPEG kernels launch on the loader's threads (--native-decode),
+        # beside the calls: phase 14 counts them over the whole run
+        for name in JPEG_KERNELS:
+            c["launches"].pop(name, None)
         if c["kind"] == "run_train_iteration":
             i = its.index(c)
             expected = counts["step"] if i <= WARMUP_STEPS else {}
@@ -3015,6 +3308,368 @@ def log_phase13(result, card):
         + f"; phase 13 took {result['seconds']:.1f} s; card {card}")
 
 
+# phase 14: the file-backed path. Trees of JPEGs written from the seed by the
+# port's texture generator through cv2.imwrite, in a temporary directory
+FILE_TREES = dict(
+    r2v2_videos=(256, 64), r2v2_frames=6, frame_hw=(360, 480),  # the cacher's longest side 480
+    imagenet_classes=1000, imagenet_train=2, imagenet_val=600, image_hw=(375, 500),
+    sun_categories=397, sun_train=2, sun_test=600,
+    kinetics_clips=(64, 48), kinetics_frames=11, kinetics_labels=400,
+    tracking_seqs=(3, 3, 2), tracking_frames=12, tracking_size=360, seed=14)
+FILE_ITERATIONS = 16  # pretraining iterations from files, with each decoder
+JPEG_KERNELS = ("ycc_to_rgb", "resize_canvas")  # the kernels of --native-decode
+FILE_END_TASK_ITERATIONS = 4
+# phase 10's runs on the trees: (the dataset's flags, the tree they read)
+FILE_END_TASKS = {
+    "ResNet50-IN-probe": (["--dataset", "ImagenetDataset", "--imagenet-data-path"], "imagenet"),
+    "ResNet50-SUN-finetune": (["--dataset", "SunSceneDataset", "--data-path"], "sun"),
+    "ResNet50-Kinetics": (["--dataset", "Kinetics400Dataset", "--data-path"], "kinetics"),
+}
+
+
+def write_file_trees(root):
+    """R2V2, ImageNet, SUN-397, Kinetics-400, GOT-10k + OTB-2015 trees under
+    ``root`` (``FILE_TREES``): every image a scene of the texture pool,
+    rolled and scaled by draws from the seed (a video's frames drift by 4
+    pixels a frame), written by cv2 from 8 threads. Returns the trees'
+    directories and the count of files."""
+    import concurrent.futures
+    import json as js
+
+    import cv2
+
+    from vince_tpu_torch.tracking.sequences import TextureSequences
+
+    t = FILE_TREES
+    pool = texture_pool(t["seed"])
+    rng = np.random.RandomState(t["seed"])
+    jobs = []  # (path, rgb image or (drawn image args))
+    dirs = {k: os.path.join(root, k) for k in ("r2v2", "imagenet", "sun", "kinetics", "tracking")}
+
+    def video(path_of, frames, hw):
+        state = rng.randint(2 ** 31)
+        for f in range(frames):
+            jobs.append((path_of(f), (state, hw, (0, 4 * f))))
+
+    for split, count in zip(("train", "val"), t["r2v2_videos"]):
+        for v in range(count):
+            vid = f"{'ABCDEFGH'[v % 8]}{'xyz'[v % 3]}{split}{v:07d}"
+            video(lambda f, vid=vid, split=split: os.path.join(
+                dirs["r2v2"], split, vid[:2], f"{vid}_{f:06d}.jpg"), t["r2v2_frames"],
+                t["frame_hw"])
+    wnids = [f"n{c:08d}" for c in range(t["imagenet_classes"])]
+    for c, wnid in enumerate(wnids):
+        for i in range(t["imagenet_train"]):
+            jobs.append((os.path.join(dirs["imagenet"], "train", wnid, f"{wnid}_{i}.JPEG"),
+                         (rng.randint(2 ** 31), t["image_hw"], (0, 0))))
+        os.makedirs(os.path.join(dirs["imagenet"], "val", wnid), exist_ok=True)
+    for i in range(t["imagenet_val"]):
+        wnid = wnids[i % len(wnids)]
+        jobs.append((os.path.join(dirs["imagenet"], "val", wnid, f"val_{i:08d}.JPEG"),
+                     (rng.randint(2 ** 31), t["image_hw"], (0, 0))))
+    categories = [f"/{chr(97 + c % 26)}/scene{c:03d}" for c in range(t["sun_categories"])]
+    lists = {"Training_01.txt": [], "Testing_01.txt": []}
+    for c, cat in enumerate(categories):
+        for i in range(t["sun_train"]):
+            lists["Training_01.txt"].append(f"{cat}/sun_train_{c:03d}_{i}.jpg")
+    for i in range(t["sun_test"]):
+        lists["Testing_01.txt"].append(f"{categories[i % len(categories)]}/sun_test_{i:04d}.jpg")
+    for name, rels in lists.items():
+        os.makedirs(dirs["sun"], exist_ok=True)
+        with open(os.path.join(dirs["sun"], name), "w") as f:
+            f.write("\n".join(rels) + "\n")
+        for rel in rels:
+            jobs.append((dirs["sun"] + rel, (rng.randint(2 ** 31), t["image_hw"], (0, 0))))
+    labels = [f"action_{i:03d}" for i in range(t["kinetics_labels"])]
+    os.makedirs(os.path.join(dirs["kinetics"], "annotations"))
+    for s, (split, count) in enumerate(zip(("train", "val"), t["kinetics_clips"])):
+        ann = {}
+        for v in range(count):
+            vid = f"{'ABCD'[v % 4]}k{split}{v:07d}"
+            ann[vid] = {"annotations": {"label": labels[(7 * v + s) % len(labels)]}}
+            video(lambda f, vid=vid, split=split: os.path.join(
+                dirs["kinetics"], split, vid[:2], f"{vid}_{f:06d}.jpg"), t["kinetics_frames"],
+                t["frame_hw"])
+        # the label map spans every class, as Kinetics' annotation files do
+        ann.update({f"ZZ{split}absent{i:04d}": {"annotations": {"label": label}}
+                    for i, label in enumerate(labels)})
+        with open(os.path.join(dirs["kinetics"], "annotations", f"{split}.json"), "w") as f:
+            js.dump(ann, f)
+    otb, got_train, got_val = t["tracking_seqs"]
+    for kind, num, seed in (("otb100", otb, 14), ("train", got_train, 15), ("val", got_val, 16)):
+        seqs = TextureSequences(num_seqs=num, num_frames=t["tracking_frames"],
+                                size=t["tracking_size"], seed=seed)
+        base = os.path.join(dirs["tracking"], kind)
+        for i, name in enumerate(seqs.seq_names):
+            frames, anno = seqs[i]
+            seq = os.path.join(base, name)
+            img_dir = os.path.join(seq, "img") if kind == "otb100" else seq
+            for f, frame in enumerate(frames):
+                jobs.append((os.path.join(img_dir, f"{f + 1:04d}.jpg" if kind == "otb100"
+                                          else f"{f + 1:08d}.jpg"), frame))
+            os.makedirs(img_dir, exist_ok=True)
+            np.savetxt(os.path.join(seq, "groundtruth_rect.txt" if kind == "otb100"
+                                    else "groundtruth.txt"), anno, fmt="%.2f", delimiter=",")
+        if kind != "otb100":
+            with open(os.path.join(base, "list.txt"), "w") as f:
+                f.write("\n".join(seqs.seq_names) + "\n")
+
+    def write(job):
+        path, image = job
+        if not isinstance(image, np.ndarray):
+            state, hw, shift = image
+            image = texture_image(pool, np.random.RandomState(state), hw, shift)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        if not cv2.imwrite(path, np.ascontiguousarray(image[:, :, ::-1])):
+            raise RuntimeError(f"cv2.imwrite failed for {path}")
+
+    with concurrent.futures.ThreadPoolExecutor(8) as ex:
+        list(ex.map(write, jobs))
+    return dirs, len(jobs)
+
+
+def file_cli_run(what, argv, card, tmp):
+    """``FILE_ITERATIONS`` iterations of the ResNet50 CLI through the parser
+    and the solver (no val, no save) on the R2V2 tree: the launches of the
+    step (K1 1, K2 26 at the eager calls and the capture) and of the JPEG
+    kernels, the meters, the peak reserved."""
+    from vince_tpu_torch import native
+
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    native.reset_counts()
+    launches, rec = solver_iterations(what, argv, "ResNet50", FILE_ITERATIONS, tmp)
+    jpeg = {k: v for k, v in read_counts()[0].items() if k in JPEG_KERNELS}
+    out = {"launches": {**launches, **jpeg}, "laps": report_laps(what, rec, card),
+           "peak_gib": torch.cuda.max_memory_reserved() / 2**30, "decodes": dict(native.counts)}
+    log(f"  {what}: peak reserved {out['peak_gib']:.3f} GiB; decodes {out['decodes']}; "
+        f"the JPEG kernels' launches {jpeg}")
+    clean_tree_decodes(what, out["decodes"])
+    return out
+
+
+def clean_tree_decodes(what, decodes):
+    """A run on a tree of clean JPEGs: no stream refused, no cv2 read in
+    place of the card's decode."""
+    if decodes["cv2_reads"] or decodes["failed"]:
+        fail(f"phase 14 {what}: {decodes['failed']} streams refused, {decodes['cv2_reads']} "
+             f"cv2 reads on a tree of clean JPEGs ({decodes})")
+
+
+def r2v2_loader_ms(tree, native_decode):
+    """The loader alone on the R2V2 tree (batches of 32 videos x (4 + 4)
+    frames, the CLI's threads), ms per batch."""
+    import argparse as ap
+
+    from vince_tpu_torch.data.r2v2_dataset import R2V2Dataset
+
+    args = ap.Namespace(input_width=224, num_frames=4, data_path=tree, seed=0,
+                        native_decode=native_decode, platform="cuda")
+    return time_loader(False, ds=R2V2Dataset(args, "train", num_images_to_return=4))
+
+
+def file_end_task(name, tmp, dirs, card):
+    """Phase 10's run ``name`` on its tree with ``--native-decode``: 4
+    iterations and the val pass from phase 9's step-48 checkpoint, no save;
+    finite losses, the val pass's counts, the JPEG kernels' launches."""
+    from vince_tpu_torch import native, solver_runner
+
+    spec = END_TASK_RUNS[name]
+    flags, tree = FILE_END_TASKS[name]
+    argv = [a for a in spec["argv"]]
+    argv[argv.index("--dataset"):argv.index("--dataset") + 2] = flags + [dirs[tree]]
+    pretrain_dir = os.path.join(tmp, "cli", "checkpoints_resnet50")
+    argv = END_TASK_ARGV[:-len(PRETRAIN_RUN)] + argv + [
+        "--solver", spec["solver"], "--title", "files", "--description", tree,
+        "--base-logdir", tmp, "--checkpoint-dir", pretrain_dir, "--native-decode", "--no-save",
+        "--iterations-per-epoch", str(FILE_END_TASK_ITERATIONS)]
+    log(f"phase 14, {name} from files: python -m vince_tpu_torch.solver_runner "
+        f"{' '.join(argv)}")
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    native.reset_counts()
+    t0 = time.perf_counter()
+    with EndTaskRecord(read_pretrain(pretrain_dir)) as rec, \
+            contextlib.redirect_stdout(Tee(sys.stdout)):
+        solver = solver_runner.main(argv)
+    wall = time.perf_counter() - t0
+    launches, plain = read_counts()
+    losses = [it["loss"] for it in rec.iterations]
+    if (len(losses) != FILE_END_TASK_ITERATIONS or not all(map(math.isfinite, losses))
+            or not rec.encoder_checks or not rec.encoder_checks[0]):
+        fail(f"phase 14 {name}: losses {losses}, encoder from the checkpoint "
+             f"{rec.encoder_checks[:1]}")
+    (val,) = rec.vals
+    expected = len(solver._make_dataset("val"))
+    items = solver.args.batch_size // spec["frames"]
+    if (val["samples"], val["batches"]) != (expected, -(-expected // items)) or not all(
+            math.isfinite(v) for v in val["results"].values()):
+        fail(f"phase 14 {name}: a val pass of {val['samples']} samples in {val['batches']} "
+             f"batches with {val['results']}, expected {expected} in {-(-expected // items)}")
+    if set(launches) != set(JPEG_KERNELS) or plain:
+        fail(f"phase 14 {name}: launches {launches}, plain calls {plain}; the JPEG kernels only")
+    clean_tree_decodes(name, native.counts)
+    laps = {m: float(np.median([it["laps"][m] * 1e3 for it in rec.iterations[1:]]))
+            for m in END_TASK_LAPS}
+    result = dict(losses=losses, val=(val["samples"], val["batches"], val["seconds"]),
+                  laps=laps, launches=launches, decodes=dict(native.counts), wall_s=wall,
+                  frames_per_s=items * spec["frames"] / laps["total_time"] * 1e3,
+                  peak_gib=torch.cuda.max_memory_reserved() / 2**30)
+    log(f"  losses {losses[0]:.4f} ... {losses[-1]:.4f}, all finite; val pass (samples, "
+        f"batches, s) {result['val']}: {val['results']}; median total_time "
+        f"{laps['total_time']:.3f} ms, data_cache_time {laps['data_cache_time']:.3f} over "
+        f"iterations 2-{FILE_END_TASK_ITERATIONS} ({result['frames_per_s']:.2f} frames/s); "
+        f"decodes {result['decodes']}; launches {launches}; {wall:.1f} s wall; card {card}")
+    del solver
+    free_cuda()
+    return result
+
+
+def file_tracking(tmp, dirs, card):
+    """Tracking from files: the frozen ResNet18SiamFCDilated on phase 11's
+    pretraining, 2 iterations on the GOT-10k tree's pairs (cv2 reads, host
+    crops) with its val pass and a save, then ``run_end_task_eval`` on the
+    OTB-2015 tree: its scores and the tracker's frames/s."""
+    from vince_tpu_torch import run_end_task_eval, solver_runner
+
+    argv = [a for a in TRACKING_ARGV]
+    for flag, value in (("--title", "trk_files"), ("--iterations-per-epoch", "2"),
+                        ("--save-frequency", "2")):
+        argv[argv.index(flag) + 1] = value
+    argv += ["--base-logdir", tmp, "--data-path", dirs["tracking"], "--checkpoint-dir",
+             os.path.join(tmp, "trk", "checkpoints_resnet18")]
+    log(f"phase 14, tracking from files: python -m vince_tpu_torch.solver_runner "
+        f"{' '.join(argv)}, then run_end_task_eval with --disable-dataloader")
+    free_cuda()
+    reset_counts()
+    t0 = time.perf_counter()
+    with EndTaskRecord(read_pretrain(os.path.join(tmp, "trk", "checkpoints_resnet18"))) as rec, \
+            contextlib.redirect_stdout(Tee(sys.stdout)) as out:
+        solver_runner.main(argv)
+        evaluated = run_end_task_eval.main(argv + ["--disable-dataloader"])
+    wall = time.perf_counter() - t0
+    launches, plain = read_counts()
+    losses = [it["loss"] for it in rec.iterations]
+    printed = out.getvalue()
+    scores = (evaluated.get("precision"), evaluated.get("success"))
+    if (len(losses) != 2 or not all(map(math.isfinite, losses)) or evaluated.get("synthetic")
+            or "OTB results:" not in printed or not all(0 <= x <= 1 for x in scores)
+            or launches or plain):
+        fail(f"phase 14 tracking: losses {losses}, eval {evaluated}, launches {launches}")
+    result = dict(losses=losses, eval=evaluated, val=[(v["samples"], v["batches"])
+                                                       for v in rec.vals], wall_s=wall)
+    log(f"  losses {losses}, all finite; val pass (samples, batches) {result['val']}; OTB-2015 "
+        f"from the tree: precision {scores[0]:.4f}, success {scores[1]:.4f}, tracker "
+        f"{evaluated['speed_fps']:.1f} frames/s, {FILE_TREES['tracking_seqs'][0]} sequences; "
+        f"{wall:.1f} s wall; card {card}")
+    return result
+
+
+def file_embeddings(tmp, dirs, card):
+    """``vince_tpu_torch/tools/extract_embeddings.py`` on the R2V2 val tree with
+    phase 9's flags and latest checkpoint, with cv2 and with ``--native-decode``:
+    the rows, their cosines, the JPEG kernels' launches, seconds."""
+    from vince_tpu_torch import native
+    from vince_tpu_torch.tools import extract_embeddings
+
+    input_dir = os.path.join(dirs["r2v2"], "val")
+    expected = FILE_TREES["r2v2_videos"][1] * FILE_TREES["r2v2_frames"]
+    out, paths = {}, {}
+    for label, extra in (("cv2", []), ("--native-decode", ["--native-decode"])):
+        free_cuda()
+        reset_counts()
+        native.reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(Tee(sys.stdout)):
+            emb, names = extract_embeddings.main(
+                CLI_ARGV + PRETRAIN_RUN + ["--base-logdir", tmp, "--input-dir", input_dir,
+                                           "--output", os.path.join(tmp, f"emb_{label}.npz")]
+                + extra)
+        launches, plain = read_counts()
+        out[label] = (emb, names, time.perf_counter() - t0)
+        paths[f"phase 14 extract_embeddings {label}"] = launches
+        if len(names) != expected or emb.shape != (expected, 128) or plain or (
+                set(launches) != (set(JPEG_KERNELS) if extra else set())):
+            fail(f"phase 14 extract_embeddings {label}: {emb.shape} rows of {len(names)} "
+                 f"paths (expected {expected}), launches {launches}, plain calls {plain}")
+        if extra and native.counts["nvjpeg"] != expected:
+            fail(f"phase 14 extract_embeddings {label}: {native.counts['nvjpeg']} of {expected} "
+                 f"files decoded by nvJPEG ({native.counts})")
+        clean_tree_decodes(f"extract_embeddings {label}", native.counts)
+    (a, na, ta), (b, nb, tb) = out.values()
+    cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+    if na != nb or cos.min() < 0.999:
+        fail(f"phase 14 extract_embeddings: cosine between the decoders min {cos.min()}")
+    log(f"  extract_embeddings: {expected} rows each; cosine cv2 / --native-decode row-wise min "
+        f"{cos.min():.6f}, median {np.median(cos):.6f}; {ta:.1f} s and {tb:.1f} s; card {card}")
+    return paths, dict(rows=expected, cos_min=float(cos.min()), seconds=(ta, tb))
+
+
+def run_phase14(card, tmp):
+    """Phase 14: the trees, pretraining from files (cv2, then --native-decode)
+    with the loader alone, the end tasks and tracking from files, the
+    embedding tool with both decoders."""
+    paths, result = {}, {}
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "files")
+    dirs, files = write_file_trees(root)
+    result["trees_s"] = time.perf_counter() - t0
+    log(f"phase 14: {files} files written in {result['trees_s']:.1f} s under a temporary "
+        f"directory ({FILE_TREES})")
+    base = [a for a in CLI_ARGV]
+    base[base.index("--dataset") + 1] = "R2V2Dataset"
+    base += ["--data-path", dirs["r2v2"]]
+    for label, extra in (("cv2", []), ("--native-decode", ["--native-decode"])):
+        what = f"R2V2 files, {label}"
+        log(f"phase 14, pretraining from files: the parser and the solver, {' '.join(base)} "
+            f"{' '.join(extra)}, {FILE_ITERATIONS} iterations, no val, no save")
+        r = file_cli_run(what, base + extra + ["--description", f"files{len(extra)}"], card, tmp)
+        if extra and not all(r["launches"].get(k) for k in JPEG_KERNELS):
+            fail(f"phase 14 {what}: a JPEG kernel was not launched ({r['launches']})")
+        paths[f"phase 14 CLI ResNet50 {what}, {FILE_ITERATIONS} iterations"] = r["launches"]
+        r["loader_ms"] = r2v2_loader_ms(dirs["r2v2"], bool(extra))
+        log(f"  {what}: the loader alone {r['loader_ms'][0]:.3f} ms a batch of 32 videos with "
+            f"{r['loader_ms'][1]} threads; card {card}")
+        result[label] = r
+    result["end_tasks"] = {}
+    for name in FILE_END_TASKS:
+        r = file_end_task(name, tmp, dirs, card)
+        paths[f"phase 14 end task {name} from files"] = r["launches"]
+        result["end_tasks"][name] = r
+    result["tracking"] = file_tracking(tmp, dirs, card)
+    paths["phase 14 tracking from files"] = {}
+    embed_paths, result["embeddings"] = file_embeddings(tmp, dirs, card)
+    paths.update(embed_paths)
+    result["seconds"] = time.perf_counter() - t0
+    return paths, result
+
+
+def log_phase14(result, card):
+    for label in ("cv2", "--native-decode"):
+        r = result[label]
+        laps = r["laps"]
+        log(f"phase 14 pretraining from R2V2 files, {label}: " + ", ".join(
+            f"{m} {laps[m][0]:.3f} ms ({laps[m][1]:.3f}-{laps[m][2]:.3f})" for m in LAPS)
+            + f", {laps['frames_per_s']:.2f} frames/s; the loader alone {r['loader_ms'][0]:.3f} "
+            f"ms a batch of 32 videos; peak reserved {r['peak_gib']:.3f} GiB; decodes "
+            f"{r['decodes']}; card {card}")
+    for name, r in result["end_tasks"].items():
+        log(f"phase 14 {name} from files (--native-decode): total_time "
+            f"{r['laps']['total_time']:.3f} ms, data_cache_time {r['laps']['data_cache_time']:.3f}"
+            f", {r['frames_per_s']:.2f} frames/s, val (samples, batches, s) {r['val']}, peak "
+            f"reserved {r['peak_gib']:.3f} GiB; card {card}")
+    t = result["tracking"]
+    log(f"phase 14 tracking from files: OTB-2015 tree precision {t['eval']['precision']:.4f}, "
+        f"success {t['eval']['success']:.4f}, tracker {t['eval']['speed_fps']:.1f} frames/s; "
+        f"card {card}")
+    e = result["embeddings"]
+    log(f"phase 14 extract_embeddings: {e['rows']} rows, cosine min {e['cos_min']:.6f}, "
+        f"{e['seconds'][0]:.1f} / {e['seconds'][1]:.1f} s; trees {result['trees_s']:.1f} s; "
+        f"phase 14 {result['seconds']:.1f} s; card {card}")
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--kernels-only", action="store_true",
@@ -3040,7 +3695,7 @@ def main():
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     times = build.build_all(["queue_logsumexp", "affine_relu_dot_moments", "depthwise_conv",
-                             "affine_conv3x3_stats"], verbose=args.ptxas)
+                             "affine_conv3x3_stats", "jpeg_decode"], verbose=args.ptxas)
     log(f"build: {time.perf_counter() - t0:.1f} s wall ({times})")
     # phase 9's logs and checkpoints, kept until phase 10 has read them
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
@@ -3058,9 +3713,10 @@ def main():
 
 
 def run_phases(args, dev, card, tmp):
-    """Phases 2-13, then the result lines."""
+    """Phases 2-14, then the result lines."""
     kernels = [check_queue_logsumexp(dev), check_affine_relu_dot_moments(dev),
-               check_affine_conv3x3_stats(dev), *check_depthwise_conv(dev)]
+               check_affine_conv3x3_stats(dev), *check_depthwise_conv(dev),
+               *check_jpeg_kernels(dev)]
     kernels[0]["at_queue_shards"] = check_other_shapes(dev)
     if not args.kernels_only:
         # each path is driven with the counts set to 0 just before its timed
@@ -3092,6 +3748,8 @@ def run_phases(args, dev, card, tmp):
         paths.update(dist_paths)
         phase13_paths, phase13 = run_phase13(dev, card, tmp)
         paths.update(phase13_paths)
+        phase14_paths, phase14 = run_phase14(card, tmp)
+        paths.update(phase14_paths)
         for k in kernels:
             k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items() if k["name"] in n}
             k["launches"] = sum(k["launches_by_path"].values())
@@ -3153,6 +3811,7 @@ def run_phases(args, dev, card, tmp):
             f"{distributed['cli']['peak_gib']:.3f} GiB, val (batches, s) "
             f"{distributed['cli']['val']}; card {card}")
         log_phase13(phase13, card)
+        log_phase14(phase14, card)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

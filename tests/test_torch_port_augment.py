@@ -16,6 +16,7 @@ from vince_tpu.utils import transforms as jax_transforms
 from vince_tpu.utils.transforms import make_config as jax_make_config
 from vince_tpu_torch.ops import augment as ta
 from vince_tpu_torch.utils.transforms import make_config
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 B, IN, OUT = 6, 40, 32
 

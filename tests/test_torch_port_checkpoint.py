@@ -16,6 +16,7 @@ from vince_tpu_torch.solvers.vince_step import (
     SourceSpec, VinceConfig, build_vince_optimizer, init_vince_state, make_train_step_fn)
 from vince_tpu_torch.utils.checkpoint import (
     CheckpointManager, _rename_modules, load_state_tree, state_tree)
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 CFG = VinceConfig(sources=(SourceSpec("YT", batch_size=4, num_frames=2),), backbone="ResNet18",
                   embed_size=16, image_size=32, queue_size=8)

@@ -20,6 +20,7 @@ from torch_port_ranks import collectives_rank, spawn
 from vince_tpu.parallel import collectives as jc
 from vince_tpu.parallel.mesh import DATA_AXIS, MeshSpec, make_mesh
 from vince_tpu_torch.parallel import collectives as tc
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 WORLDS = (2, 4)
 B, D = 16, 3

@@ -11,6 +11,7 @@ import torch
 
 from vince_tpu.ops.pallas import conv_bn_kernel as ck
 from vince_tpu_torch.ops.kernels import conv_bn_kernel as tk
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 
 def _data(n, h, w, c, f, seed=0, post_relu=False):

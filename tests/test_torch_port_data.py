@@ -2,7 +2,8 @@
 synthetic family are bit-equal for the same arguments and index; loader
 batches are bit-equal with one worker in ``repeatable`` mode, across an epoch
 reshuffle and over two shards; the NPZ datasets and ``collate_video_batch``
-agree. Also the port's staging on the CPU and the thumbnail ring."""
+agree. Also the port's staging on the CPU, the thumbnail ring, and a loader
+thread's failure reaching the consumer."""
 
 import argparse
 import itertools
@@ -21,6 +22,7 @@ from vince_tpu_torch.data import npz_dataset as tnpz
 from vince_tpu_torch.data import synthetic_dataset as tsyn
 from vince_tpu_torch.data.prefetch import BatchPrefetcher, pull_with_kill, ready, stage
 from vince_tpu_torch.ops.queue import HostImageRing
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 FAMILIES = ["SyntheticVideoDataset", "SyntheticTextureVideoDataset", "SyntheticImageDataset",
             "SyntheticClipDataset", "SyntheticTextureImageDataset",
@@ -59,11 +61,15 @@ def test_synthetic_items_are_bit_equal(family, repeatable, subset):
 
 
 def test_get_dataset_refuses_the_file_backed_datasets():
+    """Of the file-backed datasets only the video cacher, which downloads, is
+    refused; the other five are the port's classes."""
     assert get_dataset("SyntheticTextureVideoDataset") is tsyn.SyntheticTextureVideoDataset
-    for name in ("R2V2Dataset", "ImagenetDataset", "SunSceneDataset", "Kinetics400Dataset",
-                 "VideoCacherDataset"):
-        with pytest.raises(ValueError, match="ROADMAP.md §1 item 6"):
-            get_dataset(name)
+    for name in ("R2V2Dataset", "GOT10KR2V2Dataset", "ImagenetDataset", "SunSceneDataset",
+                 "Kinetics400Dataset"):
+        assert get_dataset(name).__name__ == name
+        assert get_dataset(name).__module__.startswith("vince_tpu_torch.data.")
+    with pytest.raises(ValueError, match="ROADMAP.md §1 item 10"):
+        get_dataset("VideoCacherDataset")
 
 
 def _batches(module, dataset, n, **kw):
@@ -172,6 +178,29 @@ def test_prefetcher_stages_the_loader_batches_in_order_on_the_cpu():
         prefetcher.stop()
         loader.shutdown()
     assert not prefetcher.running
+
+
+class _FailingDataset:
+    """Items that raise, as a decode on a card that fails does."""
+
+    def __len__(self):
+        return 6
+
+    def __getitem__(self, idx):
+        raise OSError(f"the card failed on item {idx}")
+
+
+def test_loader_hands_a_thread_failure_to_the_consumer():
+    """A thread whose read raises ends, and the consumer's next get_batch
+    raises with that exception as its cause, instead of waiting for good."""
+    loader = tloader.PersistentDataLoader(batch_size=3, num_workers=2, seed=7)
+    loader.set_dataset(_FailingDataset())
+    try:
+        with pytest.raises(RuntimeError, match="a loader thread failed") as info:
+            loader.get_batch(timeout=30)
+        assert isinstance(info.value.__cause__, OSError)
+    finally:
+        loader.shutdown()
 
 
 def test_host_image_ring_matches():

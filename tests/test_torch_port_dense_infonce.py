@@ -16,6 +16,7 @@ from vince_tpu.ops import infonce as jinf
 from vince_tpu_torch.ops import infonce as tinf
 from vince_tpu_torch.ops.kernels.infonce_kernel import queue_logsumexp
 from vince_tpu_torch.ops.sharded_infonce import sharded_multi_pair_infonce
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 B, D, K, TAU = 8, 128, 48, 0.07  # D = 128: K1's row width
 

@@ -10,6 +10,7 @@ import torch
 
 from vince_tpu.ops.pallas import depthwise_kernel as dk
 from vince_tpu_torch.ops.kernels import depthwise_kernel as tk
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 # the shapes of tests/test_depthwise_kernel.py: (N, H, W, C, k)
 SHAPES = [(2, 16, 16, 32, 3), (2, 12, 12, 144, 3), (4, 9, 9, 240, 5), (2, 7, 7, 256, 3)]

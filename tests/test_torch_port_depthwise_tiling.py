@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from vince_tpu_torch.ops.kernels import depthwise_kernel as tk
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 # the stride-1 depthwise sites of EfficientNet-B0 at batch 128, 224x224 (the
 # shapes chip_smoke.py times), and B4's widest one: (N, H, W, C, k, itemsize)

@@ -17,6 +17,7 @@ from vince_tpu.solvers import vince_step as jvs
 from vince_tpu_torch.solvers import vince_step as tvs
 from vince_tpu_torch.utils.jax_weights import _find_trace, flax_to_state_dict, load_jax_state
 from vince_tpu_torch.utils.schedules import vince_lr_schedule
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 
 def _with_trace(opt_state, trace):

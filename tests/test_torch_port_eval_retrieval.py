@@ -18,7 +18,7 @@ import torch
 import tools.eval_retrieval as jax_tool
 import vince_tpu.solvers.vince_solver as jax_solver_module
 import vince_tpu_torch.solvers.vince_solver as port_solver_module
-from test_torch_port_runner import one_intra_op_thread  # noqa: F401  (a module fixture)
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 from vince_tpu_torch.models.vince_model import VinceEncoder
 from vince_tpu_torch.tools import convert_reference_checkpoint
 from vince_tpu_torch.tools import eval_retrieval as port_tool

@@ -18,6 +18,7 @@ import pytest
 
 from vince_tpu_torch.ops.kernels import conv_bn_kernel as k3
 from vince_tpu_torch.ops.kernels import folded_dot_kernel as k2
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 # (M, C, F) of the K2 sites: ResNet50 and ResNet101 (the same shapes, more
 # sites) at batch 128 and 32, stage 4 of ResNet50 at four times the width,

@@ -24,6 +24,7 @@ from vince_tpu_torch.models.vince_model import (
     VinceEncoder, jigsaw_patchify, random_jigsaw_perms, split_vince_params)
 from vince_tpu_torch.utils.jax_weights import (
     flax_to_state_dict, load_jax_variables, to_reference_name)
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 RTOL, ATOL = 1e-4, 1e-6
 C, EMBED, CLASSES = 32, 16, 10

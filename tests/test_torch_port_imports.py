@@ -10,6 +10,8 @@ import sys
 
 import pytest
 
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "vince_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 

@@ -10,6 +10,7 @@ import torch
 
 from vince_tpu.ops.sharded_infonce import sharded_multi_pair_infonce as jax_infonce
 from vince_tpu_torch.ops.sharded_infonce import sharded_multi_pair_infonce as torch_infonce
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 METRICS = ("softmax_weight", "nce_accuracy", "cosine_sim", "cosine_sim_neg_max")
 

@@ -14,6 +14,7 @@ import pytest
 
 from vince_tpu_torch.ops.kernels import H100_SMS
 from vince_tpu_torch.ops.kernels import infonce_kernel as k1
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 SMEM_LIMIT = 232448  # bytes of shared memory a block can use on the H100
 

@@ -28,6 +28,7 @@ import pytest
 import torch_port_mesh_common as common
 from vince_tpu.parallel.mesh import MeshSpec, make_mesh
 from vince_tpu.solvers import vince_step as jvs
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 SYNC = dict(shuffle_mode="a2a", sync_bn=True)
 

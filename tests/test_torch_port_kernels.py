@@ -14,6 +14,7 @@ from vince_tpu.ops.pallas import infonce_kernel as jk1
 from vince_tpu_torch.ops.kernels import folded_dot_kernel as tk2
 from vince_tpu_torch.ops.kernels import infonce_kernel as tk1
 from vince_tpu_torch.ops.kernels import plain_versions
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 
 def _queue_data(b=16, d=128, k=1024, seed=0):

@@ -13,6 +13,7 @@ import pytest
 from torch_port_mesh_common import (
     METRIC_TOL, PARAM_TOL, SOURCE, batches, config, jax_run, patch, perms)
 from torch_port_ranks import mesh_step_rank, spawn
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 OPTIONS = {}
 

@@ -10,6 +10,7 @@ rows, at JAX's own tolerances (metrics rtol 2e-4, atol 2e-5; weights 1e-3,
 import pytest
 
 from torch_port_mesh_common import assert_run_equal, run_jobs
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 PER_RANK = {"gather": dict(shuffle_mode="gather"), "a2a": dict(shuffle_mode="a2a")}
 

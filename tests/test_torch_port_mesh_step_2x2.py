@@ -8,6 +8,7 @@ tolerances."""
 import pytest
 
 from torch_port_mesh_common import assert_run_equal, run_meshes
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 OPTIONS = dict(norm_kind="groupnorm")
 

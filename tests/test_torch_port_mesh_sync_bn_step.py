@@ -8,6 +8,7 @@ tolerances (metrics rtol 2e-4, atol 2e-5; weights 1e-3, 1e-5)."""
 import pytest
 
 from torch_port_mesh_common import assert_run_equal, run_meshes
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 SYNC = dict(shuffle_mode="a2a", sync_bn=True)
 

@@ -14,20 +14,13 @@ import pytest
 import torch
 
 from torch_port_ranks import cli_rank, spawn_processes
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 from vince_tpu_torch import arg_parser
 from vince_tpu_torch.parallel import multihost
 from vince_tpu_torch.solvers.vince_solver import VinceSolver
 from vince_tpu_torch.utils.checkpoint import CheckpointManager, state_tree
 
 MESHES = {"2x1": ["--sync-bn", "--shuffle-mode", "a2a"], "1x2": ["--mesh-queue-size", "2"]}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_intra_op_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _argv(tmp, *extra):

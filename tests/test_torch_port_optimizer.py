@@ -13,6 +13,7 @@ import torch
 from vince_tpu.solvers import vince_step as jvs
 from vince_tpu_torch.solvers import vince_step as tvs
 from vince_tpu_torch.utils.jax_weights import _find_trace
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 RATES = (0.1, 0.05, 0.02)
 

@@ -17,6 +17,7 @@ from tests.test_torch_port_step_heads import (
 from vince_tpu.parallel.mesh import MeshSpec, make_mesh
 from vince_tpu.solvers import vince_step as jvs
 from vince_tpu_torch.solvers import vince_step as tvs
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 
 @pytest.mark.parametrize("side", ["query", "both"])

@@ -11,6 +11,7 @@ from vince_tpu.ops import ema as jax_ema
 from vince_tpu.ops import queue as jax_queue
 from vince_tpu_torch.ops import ema as torch_ema
 from vince_tpu_torch.ops import queue as torch_queue
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 
 @pytest.mark.parametrize("batch", [3, 4, 10])

@@ -19,7 +19,7 @@ import pytest
 import torch
 import torch.nn as tnn
 
-from test_torch_port_runner import one_intra_op_thread  # noqa: F401  (a module fixture)
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 from tests.test_torch_forward_parity import TorchResNet18Features
 from vince_tpu.arg_parser import build_parser as jax_build_parser
 from vince_tpu.arg_parser import finalize_args as jax_finalize_args

@@ -37,6 +37,7 @@ from vince_tpu_torch.ops.kernels.depthwise_kernel import depthwise_conv
 from vince_tpu_torch.ops.kernels.folded_dot_kernel import affine_relu_dot_moments
 from vince_tpu_torch.solvers import vince_step as tvs
 from vince_tpu_torch.utils.jax_weights import _find_trace, flax_to_state_dict, load_jax_state
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 # Bottleneck: 2 images of 8x8, C = 128, F = 512: one K2 site (M = 128).
 # MBConv: 16 -> 96 -> 16 channels, 5x5 depthwise at stride 1 (K4), a residual.

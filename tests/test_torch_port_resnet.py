@@ -19,6 +19,7 @@ from vince_tpu_torch.models.vince_model import VinceEncoder
 from vince_tpu_torch.ops.kernels.folded_dot_kernel import affine_relu_dot_moments
 from vince_tpu_torch.utils.jax_weights import (
     flax_to_state_dict, load_jax_variables, to_reference_name)
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 
 def _perturb_scales(tree, rng):

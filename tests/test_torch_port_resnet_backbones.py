@@ -18,6 +18,7 @@ from tests.test_torch_port_resnet import _backbone_arrays
 from tests.test_torch_port_resnet_options import _close, _forward_pair
 from vince_tpu.models import resnet as jax_resnet
 from vince_tpu_torch.models import backbones
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 
 @pytest.mark.parametrize("name", ["ResNet34", "ResNet101", "ResNet152", "ResNet50w2",

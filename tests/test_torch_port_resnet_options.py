@@ -21,6 +21,7 @@ from vince_tpu.models.resnet import ResNet as JaxResNet
 from vince_tpu_torch.models import backbones
 from vince_tpu_torch.models.resnet import Bottleneck, ResNet
 from vince_tpu_torch.ops.kernels.folded_dot_kernel import affine_relu_dot_moments
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 
 def _forward_pair(jm, tm, x, perturb=True):

@@ -12,21 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 from vince_tpu_torch import arg_parser
 from vince_tpu_torch import solver_runner
 from vince_tpu_torch.parallel import multihost
 from vince_tpu_torch.solvers.vince_solver import VinceSolver
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_intra_op_thread():
-    """torch's intra-op pool at one thread for the module: the default pool
-    of one thread per core spins against the other test workers' (the CLI
-    files ran ~7x slower beside them)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _argv(tmp, *extra):
@@ -174,7 +164,8 @@ def test_jigsaw_warmup_builds_the_both_sides_step(tmp_path, sides):
         s.end()
 
 
-@pytest.mark.parametrize("extra,item", [(["--native-decode"], "item 6")])
+@pytest.mark.parametrize("extra,item", [(["--native-decode", "--loader-processes"],
+                                          "item 6a")])
 def test_flags_of_what_is_not_ported_are_refused(tmp_path, extra, item):
     args = arg_parser.parse_args(_argv(tmp_path, *extra))
     with pytest.raises(ValueError, match=f"ROADMAP.md §1 {item}"):

@@ -21,6 +21,7 @@ from vince_tpu.ops.sharded_infonce import sharded_multi_pair_infonce as jax_info
 from vince_tpu.parallel.mesh import MeshSpec, make_mesh
 from vince_tpu_torch.ops import queue as tq
 from vince_tpu_torch.ops.sharded_infonce import sharded_multi_pair_infonce
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 QUEUE_SHARDS = (2, 4)
 BG, D, K, NF, TAU = 16, 128, 64, 2, 0.07  # D = 128: JAX's kernel's lane width

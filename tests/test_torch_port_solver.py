@@ -26,6 +26,7 @@ from vince_tpu_torch import arg_parser as targs
 from vince_tpu_torch.solvers import vince_step as tvs
 from vince_tpu_torch.solvers.vince_solver import VinceSolver
 from vince_tpu_torch.utils.jax_weights import load_jax_state
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 SIZE, CANVAS, BATCH = 32, 36, 8
 OFF = (CANVAS - SIZE) // 2

@@ -13,6 +13,7 @@ from tests.test_torch_port_step import (
     BATCH, METRICS, QUEUE, STEPS, check_momentum_buffers, run_steps)
 from vince_tpu_torch.ops.kernels.depthwise_kernel import depthwise_conv
 from vince_tpu_torch.ops.kernels.infonce_kernel import queue_logsumexp
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 
 @pytest.fixture(scope="module")

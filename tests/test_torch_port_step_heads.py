@@ -31,6 +31,7 @@ from vince_tpu_torch.ops.kernels.infonce_kernel import queue_logsumexp
 from vince_tpu_torch.solvers import vince_step as tvs
 from vince_tpu_torch.utils.jax_weights import _find_trace, flax_to_state_dict, load_jax_state
 from vince_tpu_torch.utils.schedules import vince_lr_schedule
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 QUEUE, EMBED, CLASSES = 64, 32, 1000
 SCHEDULE = dict(base_lr=0.03, epochs=4, iterations_per_epoch=1, use_warmup=False)

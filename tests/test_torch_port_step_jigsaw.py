@@ -10,6 +10,7 @@ import pytest
 from tests.test_torch_port_step_heads import (  # noqa: F401
     JIGSAW, JIGSAW_SOURCES, test_step_metrics, test_step_momentum_buffers,
     test_step_queue_and_k1_calls, test_step_weights_and_batch_stats, variant_runs)
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 
 @pytest.fixture(scope="module")

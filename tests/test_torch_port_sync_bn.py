@@ -22,6 +22,7 @@ from vince_tpu.parallel.mesh import DATA_AXIS, MeshSpec, make_mesh
 from vince_tpu_torch.models.vince_model import VinceEncoder
 from vince_tpu_torch.ops.kernels.folded_dot_kernel import affine_relu_dot_moments
 from vince_tpu_torch.utils.jax_weights import flax_to_state_dict
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 WORLD, N, SIZE, EMBED = 4, 16, 32, 16
 FOLDS = ("none", "expand")

@@ -24,6 +24,7 @@ from vince_tpu_torch.models.resnet import ResNet18
 from vince_tpu_torch.models.vince_model import VinceEncoder
 from vince_tpu_torch.utils import torch_convert as tconv
 from vince_tpu_torch.utils.jax_weights import flax_to_state_dict
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 PREFIX = "feature_extractor.module.model."
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -26,6 +26,7 @@ from vince_tpu_torch.data import pair_dataset as tpair
 from vince_tpu_torch.data.loader import collate_video_batch
 from vince_tpu_torch.tracking import sequences as tseq
 from vince_tpu_torch.tracking import siamfc_transforms as ttr
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 CROP_MAX, CROP_FRACTION = 1, 1e-3
 

@@ -31,6 +31,7 @@ from vince_tpu_torch.tracking import experiments as texp
 from vince_tpu_torch.tracking import losses as tlo
 from vince_tpu_torch.tracking import ops as tops
 from vince_tpu_torch.tracking.tracker import bicubic_resize_matrix
+from torch_port_threads import one_intra_op_thread  # noqa: F401  (a module fixture)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 RTOL = 1e-5

@@ -10,9 +10,10 @@ Where the port differs:
 - ``--distributed`` starts one process per GPU over ``torch.distributed``
   (``nccl``; ``gloo`` with ``--platform cpu``), from the three explicit flags
   or from ``torchrun``'s environment;
-- ``--native-decode``, which the port does not have yet, parses, and the
-  solver refuses it when it is built, naming the ``ROADMAP.md`` item that
-  ports it.
+- ``--native-decode`` decodes the JPEGs on the run's device: nvJPEG and a
+  resize kernel on the GPU (``vince_tpu_torch/native``); with
+  ``--loader-processes`` the solver refuses it, naming the ``ROADMAP.md``
+  item.
 
 The end-task solvers (``EndTaskImagenetSolver``, ``EndTaskSunSceneSolver``,
 ``EndTaskKinetics400Solver``, ``EndTaskTrackingSolver``) take the same flags,
@@ -251,7 +252,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--native-decode", action="store_true",
-        help="Decode JPEGs through the native decoder (refused: ROADMAP.md §1 item 6).",
+        help="Decode JPEGs on the run's device: nvJPEG and a resize kernel on the GPU, "
+             "their plain versions with --platform cpu (not with --loader-processes).",
     )
     parser.add_argument(
         "--dw-kind", default="conv", choices=["conv", "tap", "pallas"],

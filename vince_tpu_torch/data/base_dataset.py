@@ -4,7 +4,9 @@ Datasets only decode and letterbox-resize to a fixed uint8 canvas; the
 augmentation runs on the device (``vince_tpu_torch.ops.augment``). The canvas
 is ``int(size / 0.875)``, so that the val path (resize by 1/0.875, centre
 crop) and the train crop both have room. ``cv2`` is imported where an image
-is read or resized, so that the package imports without it.
+is read or resized, so that the package imports without it. Under
+``--native-decode`` the JPEGs are decoded on the run's device
+(``vince_tpu_torch.native``).
 """
 
 import abc
@@ -14,7 +16,10 @@ import pickle
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from vince_tpu_torch import native
+from vince_tpu_torch.parallel import multihost
 
 def canvas_size(input_size: int) -> int:
     return int(input_size / 0.875)
@@ -38,6 +43,26 @@ class BaseDataset(abc.ABC):
     def read_image(self, path: str) -> Optional[np.ndarray]:
         """A JPEG read into an RGB uint8 square canvas; None on failure (the
         loader draws another item)."""
+        return self.read_images([path])[0]
+
+    def read_images(self, paths: List[str]) -> List[Optional[np.ndarray]]:
+        """``read_image`` of each path. With ``--native-decode`` (or
+        ``VINCE_NATIVE_DECODE=1``) the JPEGs are decoded together on the run's
+        device (``vince_tpu_torch.native``: nvJPEG and the JPEG kernels on a
+        GPU, the plain version with ``--platform cpu``); a file that path
+        refuses (not a JPEG, truncated, CMYK) is read by ``cv2`` and counted."""
+        if not native.wanted(self.args):
+            return [self._cv2_read(p) for p in paths]
+        outs, ok = native.decode_jpeg_files(paths, self.canvas, self.decode_device)
+        images = []
+        for path, img, good in zip(paths, outs, ok):
+            if not good:
+                native.count("cv2_reads")
+                img = self._cv2_read(path)
+            images.append(img)
+        return images
+
+    def _cv2_read(self, path: str) -> Optional[np.ndarray]:
         import cv2
 
         try:
@@ -48,6 +73,12 @@ class BaseDataset(abc.ABC):
             return self.resize_canvas(img)
         except Exception:
             return None
+
+    @property
+    def decode_device(self) -> torch.device:
+        """The device of ``--native-decode``: the run's (``--platform``), on
+        the rank's GPU under ``--distributed``."""
+        return multihost.local_device(getattr(self.args, "platform", "cuda"))
 
     def resize_canvas(self, img: np.ndarray) -> np.ndarray:
         c = self.canvas

@@ -68,8 +68,17 @@ def collate_video_batch(items: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.
     return out
 
 
+class _WorkerError:
+    """A loader thread's exception, handed to the consumer in place of a batch."""
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
 class PersistentDataLoader:
-    """Thread-pool loader over an index-style dataset."""
+    """Thread-pool loader over an index-style dataset. An exception in a
+    thread (a read that raises, a decode on the card that fails) ends that
+    thread and is raised by the consumer's next ``get_batch``."""
 
     def __init__(
         self,
@@ -185,6 +194,16 @@ class PersistentDataLoader:
                 self._cursor += take
             return idx
 
+    def _put(self, value):
+        """A bounded put, so that the thread ends even if the consumer
+        stopped reading."""
+        while not self._stop.is_set():
+            try:
+                self._queue.put(value, timeout=0.5)
+                return
+            except queue.Full:
+                continue
+
     def _worker_loop(self):
         try:
             import cv2
@@ -192,17 +211,16 @@ class PersistentDataLoader:
             cv2.setNumThreads(0)  # avoid nested-pool oversubscription
         except ImportError:
             pass
+        try:
+            self._load_batches()
+        except BaseException as exc:  # handed on, not lost with the thread
+            self._put(_WorkerError(exc))
+
+    def _load_batches(self):
         while not self._stop.is_set():
             indices = self._next_indices()
             if indices is None:
-                # end of data: a bounded put, so that the thread ends even if
-                # the consumer stopped reading
-                while not self._stop.is_set():
-                    try:
-                        self._queue.put(None, timeout=0.5)
-                        break
-                    except queue.Full:
-                        continue
+                self._put(None)  # end of data
                 return
             items = []
             for i in indices:
@@ -217,13 +235,7 @@ class PersistentDataLoader:
                 continue
             while len(items) < len(indices):  # keep shapes static
                 items.append(items[len(items) % max(len(items), 1)])
-            batch = self.collate_fn(items)
-            while not self._stop.is_set():
-                try:
-                    self._queue.put(batch, timeout=0.5)
-                    break
-                except queue.Full:
-                    continue
+            self._put(self.collate_fn(items))
 
     def get_batch(self, timeout: Optional[float] = None):
         if self.use_processes:
@@ -239,7 +251,10 @@ class PersistentDataLoader:
                 if batch is None:
                     continue
                 return batch
-        return self._queue.get(timeout=timeout)
+        batch = self._queue.get(timeout=timeout)
+        if isinstance(batch, _WorkerError):
+            raise RuntimeError("a loader thread failed") from batch.exc
+        return batch
 
     def __iter__(self):
         finished = 0

@@ -5,7 +5,9 @@ A library is built at first use into ``vince_tpu_torch/_build`` (listed in
 ``.gitignore``), named by a hash of its source and of the shared headers
 (``csrc/*.cuh``), so an edited source is rebuilt and an unchanged one is
 loaded as it is. ``build_all`` starts one ``nvcc`` per
-source at once and waits for all of them.
+source at once and waits for all of them. A source that needs a library of
+the CUDA toolkit beyond the runtime (``jpeg_decode.cu``: nvJPEG) names it in
+``LINK_FLAGS``.
 """
 
 import ctypes
@@ -24,6 +26,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-ldl",
 ]
+
+# libraries a source links beyond the CUDA runtime
+LINK_FLAGS = {"jpeg_decode": ["-lnvjpeg"]}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -56,7 +61,7 @@ def build_all(names: Iterable[str], verbose: bool = False) -> Dict[str, float]:
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+               "-o", str(tmp), str(CSRC_DIR / f"{name}.cu"), *LINK_FLAGS.get(name, [])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, target, time.perf_counter())

@@ -44,7 +44,8 @@ from vince_tpu_torch.solvers.end_task_step import (
     init_end_task_state,
     make_end_task_train_step,
 )
-from vince_tpu_torch.solvers.vince_solver import mesh_shape, metrics_to_host, refused_flags
+from vince_tpu_torch.solvers.vince_solver import (
+    mesh_shape, metrics_to_host, open_native_decode, refused_flags)
 from vince_tpu_torch.utils.checkpoint import (
     CheckpointManager,
     end_task_state_tree,
@@ -71,6 +72,7 @@ class EndTaskBaseSolver(BaseSolver):
             raise ValueError("not ported yet: " + "; ".join(refused))
         mesh_shape(args, 1)  # one process: the data axis clamps to it, a queue axis raises
         self.device = resolve_device(getattr(args, "platform", "cuda"))
+        open_native_decode(args, self.device)
         self.seed = getattr(args, "seed", 0)
         self.train_loader: Optional[PersistentDataLoader] = None
         self._prefetcher: Optional[BatchPrefetcher] = None

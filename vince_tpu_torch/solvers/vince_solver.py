@@ -41,6 +41,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from vince_tpu_torch import native
 from vince_tpu_torch.data import get_dataset
 from vince_tpu_torch.data.loader import PersistentDataLoader
 from vince_tpu_torch.data.npz_dataset import NPZDataset
@@ -75,9 +76,18 @@ def refused_flags(args) -> List[str]:
     """What the flags ask for that the port does not have yet, each with the
     ``ROADMAP.md`` item that ports it."""
     out = []
-    if getattr(args, "native_decode", False):
-        out.append("--native-decode (ROADMAP.md §1 item 6)")
+    if native.wanted(args) and getattr(args, "loader_processes", False):
+        # each worker process would open a CUDA context and nvJPEG handles of its own
+        out.append("--native-decode with --loader-processes (ROADMAP.md §1 item 6a)")
     return out
+
+
+def open_native_decode(args, device: torch.device):
+    """With ``--native-decode``, build and load the decode for ``device``
+    before any loader thread starts, so that a build failure raises in the
+    solver's own thread."""
+    if native.wanted(args) and not native.available(device):
+        raise RuntimeError(f"--native-decode: the decode does not run on {device}")
 
 
 def mesh_shape(args, world: int) -> Tuple[int, int]:
@@ -112,6 +122,7 @@ class VinceSolver(BaseSolver):
         platform = getattr(args, "platform", "cuda")
         self.device = (multihost.local_device(platform) if dist.is_initialized()
                        else resolve_device(platform))
+        open_native_decode(args, self.device)
         md, mq = mesh_shape(args, multihost.process_count())
         # a mesh only under a process group; one process without one is the
         # single-device step (a 1x1 mesh's collectives over a world of one

@@ -1,8 +1,8 @@
 """Host-side tracking image ops (counterpart of ``vince_tpu/tracking/ops.py``).
 
 The JAX package crops with one ``cv2.warpAffine`` (bilinear, constant border
-at the mean colour). The GPU machine has no ``cv2``, so the crop here is a
-numpy replica of it. The crop's matrix only scales and translates, so the
+at the mean colour). The crop here is a numpy replica of it, so that the
+tracker and the pair datasets need ``cv2`` only to read image files. The crop's matrix only scales and translates, so the
 warp is separable: each output row reads two source rows and each output
 column two source columns. As cv2 does, the replica inverts the 2×3 matrix
 in float64, computes the source coordinates in float32 at the integer output
@@ -108,14 +108,14 @@ def get_cropped_input(image: np.ndarray, xyxy: Sequence[float], padding_scale: f
 
 def read_image(path: str) -> Optional[np.ndarray]:
     """An image file as RGB uint8 [H, W, 3], None if it cannot be read. It
-    needs ``cv2``, which the GPU machine does not have (``ROADMAP.md`` §1
-    item 6); frames held in memory need no read."""
+    needs ``cv2`` (the file-backed datasets read with it too, ``ROADMAP.md``
+    §1 item 6); frames held in memory need no read."""
     try:
         import cv2
     except ImportError as e:
-        raise RuntimeError("reading an image file needs cv2, which is not installed; the "
+        raise RuntimeError("reading an image file needs cv2, which is not installed here; the "
                            "tracking sequences in memory need none (the file-backed "
-                           "datasets: ROADMAP.md §1 item 6)") from e
+                           "datasets read with cv2 too: ROADMAP.md §1 item 6)") from e
     img = cv2.imread(path, cv2.IMREAD_COLOR)
     if img is None:
         return None

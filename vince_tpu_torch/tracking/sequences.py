@@ -9,9 +9,8 @@ An item is ``(frames, anno)``: the frames as image paths or as uint8
 - ``SyntheticSequences``: a bright square drifting over noise, and
   ``TextureSequences``: a grating patch drifting over a grating of another
   orientation, through one equalised duotone ramp, so that only texture
-  tells the target. Both are the JAX generators, held in memory: the JAX
-  ones write each frame as a JPEG with ``cv2``, which the GPU machine does
-  not have. The square is drawn inclusive of both corners, as
+  tells the target. Both are the JAX generators, held in memory, where the
+  JAX ones write each frame as a JPEG with ``cv2``. The square is drawn inclusive of both corners, as
   ``cv2.rectangle`` draws it.
 """
 
