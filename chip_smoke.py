@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py            # all phases (needs one CUDA device)
     python3 chip_smoke.py --kernels-only --ptxas   # build + kernel checks only
-    python3 chip_smoke.py --end-tasks-only         # build, short pretrainings, phases 10-11
+    python3 chip_smoke.py --end-tasks-only         # build, short pretrainings, phases 10, 11, 15
 
 Phases:
   1. build every CUDA kernel of the port from ``vince_tpu_torch/csrc``;
@@ -133,7 +133,29 @@ Phases:
      ``run_end_task_eval`` on the OTB-2015 tree (its scores, the tracker's
      frames/s); ``tools/extract_embeddings.py`` on the R2V2 val tree with
      both decoders (the rows, their cosines >= 0.999, every file decoded
-     by nvJPEG).
+     by nvJPEG);
+ 15. the slice across processes, at a world of one over NCCL: the end-task
+     train step of phase 10's ImageNet probe and SUN fine-tune (ResNet50,
+     batch 256, 224², bf16) on a 1x1 mesh against the one-device step, 3
+     steps from one seed under cuDNN deterministic, bit-identical (losses and
+     every tensor of the states); ``tools/soak_multichip.py``'s soak, 50
+     eager steps of phase 3's ResNet50 step with sync-BN and the a2a shuffle
+     on the 1x1 mesh and on one device from one seed and one data stream, at
+     the soak's tolerance (K1 1 and K2 26 a step), with the ms/step of each;
+     ``tools/audit_collectives.py``'s audit of one profiled eager step (its
+     NCCL collectives against the analytic table, no queue bank moved);
+     ``tools/dryrun_multichip.py``'s dry run; the ImageNet probe and the
+     Kinetics LSTM through ``solver_runner.main`` with ``--distributed`` (the
+     explicit flags): 4 iterations, a save and the val pass from phase 9's
+     checkpoint, then ``run_end_task_eval`` in one process restores each
+     checkpoint, its val pass equal to the distributed one; tracking with
+     ``--distributed`` (2 iterations, a save, the val pass), then
+     ``run_eval`` on the primary of a world of one; the visualization CLIs:
+     the attention grid on a 2-iteration ``--use-attention`` pretraining of
+     phase 9's flags, the neighbour grid and the mosaic (``--with-tsne``
+     where the host has ``sklearn``) on phase 9's checkpoint, and the
+     neighbour grid's embeddings against the embed step through the plain
+     versions (row cosine >= 0.9995).
 
 Phase 2 also holds the JPEG path's two kernels (``csrc/jpeg_decode.cu``:
 libjpeg's chroma upsampling and YCbCr -> RGB, and the resize; the
@@ -807,6 +829,7 @@ def check_other_shapes(dev):
 # the JPEG kernels' check: a batch of 160 frames of 480x360 (R2V2's frames: the
 # video cacher's longest side is 480) decoded on the card, to 256x256
 RESIZE_BATCH, RESIZE_FRAME, RESIZE_CANVAS = 160, (360, 480), 256
+DECODE_ROUNDS = 20  # decodes of the batch held to the first bit for bit
 TEXTURE_POOL = 16  # base scenes of the texture generator behind every image of phase 14
 
 
@@ -1013,6 +1036,14 @@ def check_jpeg_kernels(dev):
     log(f"  nvJPEG + the kernels against cv2 + the plain resize over the {n} frames: worst "
         f"mean {worst[0]:.4f}, p99 {worst[1]}, max {worst[2]} (JAX would decode these at a DCT "
         f"scale: mean < 3; the port decodes at full size); decodes {backends}")
+    # a decode state reused before its last image has left the card hands an
+    # image another's data now and then (jpeg_decode.cu): decode the batch again
+    for r in range(1, DECODE_ROUNDS):
+        again, _ = decoder.decode(items, c)
+        differ = np.nonzero((again != outs).reshape(n, -1).any(1))[0]
+        if len(differ):
+            fail(f"decode {r} of the batch differs from the first in frames {differ.tolist()}")
+    log(f"  {DECODE_ROUNDS} decodes of the batch bit-equal")
     native.reset_counts()
     ragged = ragged_streams(pool)
     outs, ok = decoder.decode([b for _, b, _ in ragged], c)
@@ -2677,25 +2708,21 @@ DIST_CLI_ITERATIONS = 8
 DIST_BACKEND = "nccl"  # the backend of CUDA tensors
 
 
-def free_port():
-    import socket
+def dist_flags():
+    """The CLI's flags of a world of one on a free port of 127.0.0.1."""
+    from vince_tpu_torch.parallel.launch import free_port
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
+    return ["--distributed", "--coordinator-address", f"127.0.0.1:{free_port()}",
+            "--num-processes", "1", "--process-id", "0"]
 
 
 def start_world_of_one(dev):
-    """An NCCL process group of rank 0 in a world of 1 (a ``TCPStore`` on
-    127.0.0.1) and its 1x1 mesh."""
-    import torch.distributed as dist
-
+    """A process group of rank 0 in a world of 1 (NCCL on the card, gloo on
+    the CPU; a ``TCPStore`` on 127.0.0.1) and its 1x1 mesh."""
+    from vince_tpu_torch.parallel.launch import start_world_of_one as start
     from vince_tpu_torch.parallel.mesh import Mesh, MeshSpec
 
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-    store = dist.TCPStore("127.0.0.1", free_port(), 1, is_master=True)
-    dist.init_process_group(DIST_BACKEND, store=store, rank=0, world_size=1)
+    start(dev)
     return Mesh(MeshSpec(1, 1))
 
 
@@ -2835,15 +2862,14 @@ def run_distributed_cli(card, tmp):
                        "--epochs", "1", "--iterations-per-epoch", str(DIST_CLI_ITERATIONS),
                        "--save-frequency", str(DIST_CLI_ITERATIONS), "--sync-bn",
                        "--shuffle-mode", "a2a"]
-    dist_flags = ["--distributed", "--coordinator-address", f"127.0.0.1:{free_port()}",
-                  "--num-processes", "1", "--process-id", "0"]
+    flags = dist_flags()
     log(f"phase 12, CLI: python -m vince_tpu_torch.solver_runner {' '.join(base[:-4])} "
-        f"{' '.join(base[-4:])} {' '.join(dist_flags)}")
+        f"{' '.join(base[-4:])} {' '.join(flags)}")
     free_cuda()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with CliRecord() as rec, contextlib.redirect_stdout(Tee(sys.stdout)) as out:
-        solver = solver_runner.main(base + dist_flags)
+        solver = solver_runner.main(base + flags)
     result = {"wall_s": time.perf_counter() - t0,
               "peak_gib": torch.cuda.max_memory_reserved() / 2**30}
     if f"distributed: process 0/1, backend {DIST_BACKEND}" not in out.getvalue():
@@ -3316,7 +3342,7 @@ FILE_TREES = dict(
     sun_categories=397, sun_train=2, sun_test=600,
     kinetics_clips=(64, 48), kinetics_frames=11, kinetics_labels=400,
     tracking_seqs=(3, 3, 2), tracking_frames=12, tracking_size=360, seed=14)
-FILE_ITERATIONS = 16  # pretraining iterations from files, with each decoder
+FILE_ITERATIONS = 10  # pretraining iterations from files, with each decoder
 JPEG_KERNELS = ("ycc_to_rgb", "resize_canvas")  # the kernels of --native-decode
 FILE_END_TASK_ITERATIONS = 4
 # phase 10's runs on the trees: (the dataset's flags, the tree they read)
@@ -3670,6 +3696,456 @@ def log_phase14(result, card):
         f"phase 14 {result['seconds']:.1f} s; card {card}")
 
 
+# phase 15: the end tasks across processes, the multi-rank soak, the audit of
+# the collectives, the dry run and the visualization CLIs, at a world of one
+END_TASK_STEPS = 3  # the end-task step on a 1x1 mesh against the one-device step
+SOAK_STEPS = 50
+DIST_END_TASK_ITERATIONS = 4
+DIST_TRACKING_ITERATIONS = 2
+VIZ_IMAGES = 128  # the neighbour grid's images (a batch of phase 9's 128)
+
+
+def end_task_step_config(name):
+    """Phase 10's run ``name`` as the step's ``EndTaskConfig`` (the solver's
+    own ``make_config`` on its flags, one process), the solver's class and
+    the flags."""
+    from vince_tpu_torch import arg_parser
+    from vince_tpu_torch.solvers import end_task_solvers
+
+    spec = END_TASK_RUNS[name]
+    with contextlib.redirect_stdout(io.StringIO()):
+        args = arg_parser.parse_args(END_TASK_ARGV + spec["argv"] + ["--solver", spec["solver"]])
+    solver_cls = getattr(end_task_solvers, spec["solver"])
+    unbuilt = solver_cls.__new__(solver_cls)  # make_config reads only the flags and the mesh
+    unbuilt.args, unbuilt.mesh = args, None
+    return solver_cls.make_config(unbuilt), solver_cls, args
+
+
+def end_task_states_differ(a, b):
+    """The first tensor (or count) in which two end-task states differ, or
+    None."""
+    from vince_tpu_torch.utils.checkpoint import end_task_state_tree
+
+    def walk(prefix, x, y):
+        for k, v in y.items():
+            if isinstance(v, dict):
+                found = walk(f"{prefix}{k}/", x[k], v)
+                if found:
+                    return found
+            elif isinstance(v, torch.Tensor) and not torch.equal(x[k], v):
+                return prefix + k
+            elif not isinstance(v, torch.Tensor) and x[k] != v:
+                return prefix + k
+        return None
+
+    return walk("", end_task_state_tree(a), end_task_state_tree(b))
+
+
+def run_end_task_mesh_steps(dev, mesh):
+    """The end-task train step of phase 10's ImageNet probe and SUN fine-tune
+    (ResNet50, 224², bf16, batch 256, 1000 and 397 classes) on a 1x1 mesh
+    against the one-device step: the same seed, the same batches of the
+    run's train split, cuDNN deterministic, 3 steps; at a world of one every
+    collective is the identity, so the losses and every tensor of the states
+    are bit-identical. Returns each run's ms/step (mesh, one device)."""
+    from vince_tpu_torch.data.synthetic_dataset import SyntheticImageDataset
+    from vince_tpu_torch.solvers import end_task_step as ets
+
+    out, batches = {}, None
+    torch.backends.cudnn.deterministic = True
+    try:
+        # SUN's first: its 397 classes' labels serve the probe's 1000 too
+        for name in ("ResNet50-SUN-finetune", "ResNet50-IN-probe"):
+            cfg, solver_cls, args = end_task_step_config(name)
+            spec = ets.build_optimizer(cfg, args.base_lr, solver_cls.optimizer_kind)
+            if batches is None:
+                ds = SyntheticImageDataset(args, "train")
+                batches = [synthetic_image_batch(ds, i, args.batch_size, dev)
+                           for i in range(END_TASK_STEPS)]
+            log(f"phase 15, the end-task step on {mesh} against one device: {name} "
+                f"({cfg.backbone}, batch {args.batch_size}, {cfg.image_size}², "
+                f"{str(cfg.compute_dtype).replace('torch.', '')}, "
+                f"{cfg.num_classes} classes, frozen {cfg.freeze_feature_extractor}), "
+                f"{END_TASK_STEPS} steps, cuDNN deterministic")
+            runs = {}
+            for label, m in (("mesh", mesh), ("one", None)):
+                state = ets.init_end_task_state(0, cfg, spec, device=dev)
+                step = ets.make_end_task_train_step(cfg, train=True, mesh=m)
+                losses, ms = [], []
+                for batch in batches:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    _, metrics = step(state, batch, 0)
+                    losses.append(metrics["loss/total_loss"].item())
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                runs[label] = (state, losses, float(np.median(ms)))
+            differs = end_task_states_differ(runs["mesh"][0], runs["one"][0])
+            if runs["mesh"][1] != runs["one"][1] or differs:
+                fail(f"phase 15, {name}: the end-task step on a 1x1 mesh is not bit-identical "
+                     f"to the one-device step: losses {runs['mesh'][1]} / {runs['one'][1]}, "
+                     f"first differing tensor {differs}")
+            log(f"  losses {runs['mesh'][1]} bit-identical, and every tensor of the states "
+                f"(encoder, decoder, optimizer buffers, counts); ms/step mesh "
+                f"{runs['mesh'][2]:.3f}, one device {runs['one'][2]:.3f}")
+            out[name] = (runs["mesh"][2], runs["one"][2])
+            del runs
+            free_cuda()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def synthetic_image_batch(ds, seed, items, dev):
+    """``items`` items of ``ds`` from index ``seed·items`` as the step's
+    batch on ``dev``: uint8 ``data`` and int32 ``labels``."""
+    from vince_tpu_torch.data.loader import collate_video_batch
+
+    hb = collate_video_batch([ds[(seed * items + i) % len(ds)] for i in range(items)])
+    labels = hb.get("classifier_labels", hb.get("labels"))
+    return {"data": torch.from_numpy(hb["data"]).to(dev),
+            "labels": torch.from_numpy(np.asarray(labels, np.int32)).to(dev)}
+
+
+def soak_options():
+    """Phase 3's ResNet50 step (b = 128 = 32 videos x 4 frames, 224² from
+    256², q = 65536, embeddings 128, bf16, fused InfoNCE, fold kernel) with
+    sync-BN and the a2a shuffle, for ``SOAK_STEPS`` steps."""
+    from vince_tpu_torch.tools.soak_multichip import SoakOptions
+
+    return SoakOptions(steps=SOAK_STEPS, image=224, queue=65536, batch=BATCH_SIZE, num_frames=4,
+                       embed=128, backbone="ResNet50", compute_dtype="bfloat16",
+                       use_fused_infonce=True, fold_kernel=True, shuffle_mode="a2a")
+
+
+def profile_soak_step(dev, mesh, opts, path):
+    """Two warm-up steps, then one traced step, of the soak's step on
+    ``mesh`` (None: one device); the table to ``path``."""
+    from vince_tpu_torch.solvers.vince_step import (
+        build_vince_optimizer, init_vince_state, make_train_step_fn)
+    from vince_tpu_torch.tools import soak_multichip as soak
+
+    cfg = soak.soak_config(opts)
+    opt = build_vince_optimizer(soak.LR)
+    state = init_vince_state(soak.SEED, cfg, opt, device=dev, mesh=mesh)
+    step = make_train_step_fn(cfg, opt, mesh=mesh)
+    batches = [(soak.global_batch(opts, i, dev),) for i in range(3)]
+    for batch in batches[:2]:
+        step(state, batch, 1)
+    profile_step(step, state, batches[2], path)
+
+
+def run_soak(dev, mesh, profile_path=None):
+    """``tools/soak_multichip.py`` on the 1x1 mesh and on one device from one
+    seed and one data stream, at the soak's tolerance; K1 1 and K2 26 a
+    step; with ``profile_path``, one traced step of each. Returns the
+    launches of the mesh's run and both runs' results."""
+    from vince_tpu_torch.tools import soak_multichip
+
+    opts = soak_options()
+    log(f"phase 15, the soak: {SOAK_STEPS} eager steps of phase 3's ResNet50 step with "
+        f"sync-BN and the a2a shuffle on {mesh}, then on one device, the same seed and data "
+        f"(tools/soak_multichip.py)")
+    results, launches = [], {}
+    for m in (mesh, None):
+        reset_counts()
+        results.append(soak_multichip.run_mesh(opts, dev, m))
+        counts = expect_counts(
+            f"{SOAK_STEPS} soak steps ({'1x1' if m else 'one device'})",
+            {n: v * SOAK_STEPS for n, v in TRAIN_PHASES["ResNet50"]["per_step"].items()})
+        launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
+        if profile_path:
+            root, ext = os.path.splitext(profile_path)
+            log(f"  the traced soak step ({'1x1' if m else 'one device'}):")
+            profile_soak_step(dev, m, opts, f"{root}.soak_{'1x1' if m else 'one_device'}{ext}")
+        free_cuda()
+    if not soak_multichip.parity(results):
+        fail("phase 15: the soak's trajectories part beyond the tolerance")
+    log(f"  PARITY OK; ms/step 1x1 {results[0]['ms_per_step']:.3f}, one device "
+        f"{results[1]['ms_per_step']:.3f}; losses {results[0]['losses'][0]:.5f} -> "
+        f"{results[0]['losses'][-1]:.5f}")
+    return launches, results
+
+
+def run_audit(dev):
+    """``tools/audit_collectives.py`` at a world of one: one warm-up and one
+    profiled eager step of phase 3's ResNet50 step (a2a shuffle); its NCCL
+    collectives against the analytic table, no queue bank moved. Returns the
+    launches of the two steps and the result."""
+    from vince_tpu_torch.tools import audit_collectives
+
+    opts = audit_collectives.audit_options(False, use_fused_infonce=True, fold_kernel=True,
+                                           shuffle_mode="a2a")
+    log("phase 15, the audit: one eager step of phase 3's ResNet50 step (a2a) under "
+        "torch.profiler on a 1x1 NCCL mesh (tools/audit_collectives.py)")
+    reset_counts()
+    result = audit_collectives.audit_rank(0, 1, 1, 1, opts, "cuda", device=dev)
+    launches = expect_counts(
+        "the audit's 2 steps",
+        {n: v * 2 for n, v in TRAIN_PHASES["ResNet50"]["per_step"].items()})
+    for line in audit_collectives.summary(result):
+        log("  " + line)
+    if result["problems"]:
+        fail(f"phase 15: the audit found {result['problems']}")
+    return launches, result
+
+
+def viz_argv(tmp, *extra):
+    """Phase 9's run's flags, for a visualization CLI with ``extra``: 2 loader
+    workers, since a CLI reads its images from the dataset itself and its
+    solver's loaders would only compete with it for the host."""
+    return CLI_ARGV + PRETRAIN_RUN + ["--base-logdir", tmp, "--num-workers", "2", *extra]
+
+
+def run_visualizations(card, tmp):
+    """The three visualization CLIs at phase 9's flags: the attention grid on
+    a 2-iteration ``--use-attention`` pretraining, the neighbour grid and the
+    mosaic (with ``--with-tsne`` where the host has ``sklearn``) on phase 9's
+    checkpoint; the neighbour grid's embeddings held to the embed step
+    through the plain versions. Returns the launches and the numbers."""
+    import importlib.util
+
+    from vince_tpu_torch import arg_parser, solver_runner
+    from vince_tpu_torch.data import get_dataset
+    from vince_tpu_torch.ops.kernels import plain_versions
+    from vince_tpu_torch.solvers.vince_solver import VinceSolver
+    from vince_tpu_torch.visualizations import attention, dataset_mosaic, view_nearest_neighbors
+
+    result, paths = {}, {}
+    att = os.path.join(tmp, "phase15")
+    att_argv = CLI_ARGV + ["--use-attention", "--title", "att", "--description", "resnet50",
+                           "--base-logdir", att, "--epochs", "1", "--iterations-per-epoch", "2",
+                           "--save-frequency", "2", "--synthetic-num-videos", "64"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(Tee(sys.stdout)):
+        solver_runner.main(att_argv)
+        free_cuda()
+        written = [attention.main(att_argv + ["--num-images", "64", "--num-workers", "2",
+                                              "--output-dir", os.path.join(tmp, "viz")])]
+        free_cuda()
+        out = ["--num-images", str(VIZ_IMAGES), "--output-dir", os.path.join(tmp, "viz")]
+        written.append(view_nearest_neighbors.main(viz_argv(tmp, *out)))
+        free_cuda()
+        tsne = importlib.util.find_spec("sklearn") is not None
+        written += dataset_mosaic.main(viz_argv(tmp, *out, *(["--with-tsne"] if tsne else [])))
+    free_cuda()
+    sizes = {os.path.basename(p): os.path.getsize(p) for p in written}
+    if len(written) != 3 + int(tsne) or not all(sizes.values()):
+        fail(f"phase 15: the visualization CLIs wrote {sizes}")
+    log(f"phase 15, the visualization CLIs: wrote {sizes}; the mosaic "
+        f"{'with' if tsne else 'without'} --with-tsne (sklearn "
+        f"{'present' if tsne else 'absent on this host'}); {time.perf_counter() - t0:.1f} s")
+    result["files"], result["tsne"] = sizes, tsne
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        args = arg_parser.parse_args(viz_argv(tmp))
+        solver = VinceSolver(args)
+    try:
+        ds = get_dataset(args.dataset)(args, "val")
+        items = [ds[i] for i in range(VIZ_IMAGES)]  # read once: frames are drawn per read
+        reset_counts()
+        images, emb = view_nearest_neighbors.embed_dataset(solver, items, VIZ_IMAGES,
+                                                           args.batch_size)
+        torch.cuda.synchronize()
+        launches, plain = read_counts()
+        with plain_versions():
+            _, ref = view_nearest_neighbors.embed_dataset(solver, items, VIZ_IMAGES,
+                                                          args.batch_size)
+    finally:
+        solver.end()
+    cos = (emb * ref).sum(1) / np.maximum(np.linalg.norm(emb, axis=1)
+                                          * np.linalg.norm(ref, axis=1), 1e-12)
+    log(f"  the neighbour grid's {len(emb)} embeddings (phase 9's checkpoint) against the "
+        f"embed step through the plain versions: row cosine min {cos.min():.6f} (>= 0.9995); "
+        f"launches {launches}, plain calls {plain} (eval-mode BN takes the unfused chain)")
+    if cos.min() < 0.9995 or plain:
+        fail("phase 15: the neighbour grid's embeddings disagree with the plain versions")
+    paths["phase 15 visualizations, embed"] = launches
+    result["cos_min"] = float(cos.min())
+    return paths, result
+
+
+def dist_end_task_argv(tmp, name):
+    """Phase 10's run ``name`` for ``DIST_END_TASK_ITERATIONS`` iterations
+    under ``tmp/phase15``, from phase 9's checkpoint."""
+    spec = END_TASK_RUNS[name]
+    return END_TASK_ARGV + spec["argv"] + [
+        "--solver", spec["solver"], "--base-logdir", os.path.join(tmp, "phase15"),
+        "--checkpoint-dir", os.path.join(tmp, "cli", "checkpoints_resnet50"),
+        "--iterations-per-epoch", str(DIST_END_TASK_ITERATIONS),
+        "--save-frequency", str(DIST_END_TASK_ITERATIONS)]
+
+
+def run_dist_end_tasks(card, tmp):
+    """The ImageNet probe and the Kinetics LSTM through ``solver_runner.main``
+    with ``--distributed`` (the three explicit flags, a world of one over
+    NCCL): 4 iterations, a save and the val pass from phase 9's checkpoint;
+    then ``run_end_task_eval`` in one process restores each checkpoint and
+    its val pass equals the distributed one. Returns the numbers."""
+    from vince_tpu_torch import run_end_task_eval, solver_runner
+
+    out = {}
+    for name in ("ResNet50-IN-probe", "ResNet50-Kinetics"):
+        spec = END_TASK_RUNS[name]
+        argv = dist_end_task_argv(tmp, name)
+        log(f"phase 15, {name} with --distributed: python -m vince_tpu_torch.solver_runner "
+            f"{' '.join(argv)} {' '.join(dist_flags())}; then run_end_task_eval in one process")
+        pretrain = read_pretrain(os.path.join(tmp, "cli", "checkpoints_resnet50"))
+        reset_counts()
+        t0 = time.perf_counter()
+        with EndTaskRecord(pretrain, spec["val_items"]) as rec, \
+                contextlib.redirect_stdout(Tee(sys.stdout)) as printed:
+            solver = solver_runner.main(argv + dist_flags())
+            train_s = time.perf_counter() - t0
+            mesh = (solver.cfg.data_axis_size, solver.mesh is not None)
+            del solver
+            free_cuda()
+            evaluated = run_end_task_eval.main(argv + ["--disable-dataloader"])
+        launches, plain = read_counts()
+        text = printed.getvalue()
+        if f"distributed: process 0/1, backend {DIST_BACKEND}" not in text or mesh != (1, True):
+            fail(f"phase 15, {name}: the run did not start its {DIST_BACKEND} group or built "
+                 f"no mesh ({mesh})")
+        if f"Restored end-task step {DIST_END_TASK_ITERATIONS}" not in text:
+            fail(f"phase 15, {name}: run_end_task_eval did not restore the distributed run's "
+                 f"step {DIST_END_TASK_ITERATIONS}")
+        if len(rec.vals) != 2 or not rec.encoder_checks or not rec.encoder_checks[0]:
+            fail(f"phase 15, {name}: {len(rec.vals)} val passes, encoder checks "
+                 f"{rec.encoder_checks[:1]}")
+        losses = [it["loss"] for it in rec.iterations]
+        if len(losses) != DIST_END_TASK_ITERATIONS or not all(map(math.isfinite, losses)):
+            fail(f"phase 15, {name}: losses {losses}")
+        if launches or plain:
+            fail(f"phase 15, {name}: launches {launches}, plain calls {plain}; none expected")
+        dist_val, one_val = rec.vals
+        if (dist_val["samples"], dist_val["batches"]) != (one_val["samples"], one_val["batches"]):
+            fail(f"phase 15, {name}: val passes {dist_val} / {one_val}")
+        for k, v in dist_val["results"].items():
+            for got in (one_val["results"][k], evaluated[k]):
+                if abs(got - v) > 5e-5 + 1e-5 * abs(v):
+                    fail(f"phase 15, {name}: the one-process val pass's {k} {got} against the "
+                         f"distributed one's {v}")
+        log(f"  losses {losses[0]:.4f} ... {losses[-1]:.4f}; val passes (samples, batches, s) "
+            f"distributed {dist_val['samples']}, {dist_val['batches']}, "
+            f"{dist_val['seconds']:.2f}; one process after the restore "
+            f"{one_val['samples']}, {one_val['batches']}, {one_val['seconds']:.2f}; results "
+            f"equal (5e-5 + 1e-5·|v|): {dist_val['results']}; train {train_s:.1f} s; no launch; "
+            f"card {card}")
+        out[name] = dict(val=dist_val["results"], train_s=train_s,
+                         seconds=time.perf_counter() - t0)
+        free_cuda()
+    return out
+
+
+def run_dist_tracking(dev, card, tmp):
+    """Tracking with ``--distributed`` (the explicit flags): 2 iterations, a
+    save, the val pass; then, under a world of one, ``run_eval`` on the
+    primary (the OTB fallback) of the restored state. Returns the numbers."""
+    from vince_tpu_torch import arg_parser, solver_runner
+    from vince_tpu_torch.solvers.end_task_solvers import EndTaskTrackingSolver
+
+    import torch.distributed as dist
+
+    argv = TRACKING_ARGV + ["--base-logdir", os.path.join(tmp, "phase15"), "--checkpoint-dir",
+                            os.path.join(tmp, "trk", "checkpoints_resnet18")]
+    for flag, value in (("--iterations-per-epoch", DIST_TRACKING_ITERATIONS),
+                        ("--save-frequency", DIST_TRACKING_ITERATIONS)):
+        argv[argv.index(flag) + 1] = str(value)
+    log(f"phase 15, tracking with --distributed: python -m vince_tpu_torch.solver_runner "
+        f"{' '.join(argv)} {' '.join(dist_flags())}; then run_eval on the primary of a world "
+        f"of one")
+    t0 = time.perf_counter()
+    with EndTaskRecord(read_pretrain(os.path.join(tmp, "trk", "checkpoints_resnet18"))) as rec, \
+            contextlib.redirect_stdout(Tee(sys.stdout)):
+        solver = solver_runner.main(argv + dist_flags())
+        val, mesh = (solver.last_val_samples, solver.last_val_batches), solver.mesh
+        del solver
+        free_cuda()
+        start_world_of_one(dev)
+        try:
+            tracker = EndTaskTrackingSolver(arg_parser.parse_args(argv + ["--disable-dataloader"]))
+            try:
+                otb = tracker.run_eval()
+            finally:
+                tracker.end()
+        finally:
+            dist.destroy_process_group()
+    losses = [it["loss"] for it in rec.iterations]
+    if len(losses) != DIST_TRACKING_ITERATIONS or not all(map(math.isfinite, losses)):
+        fail(f"phase 15, tracking: losses {losses}")
+    batch = int(argv[argv.index("--batch-size") + 1])
+    if mesh is None or val != (TRACKING_VAL_PAIRS, -(-TRACKING_VAL_PAIRS // batch)):
+        fail(f"phase 15, tracking: mesh {mesh}, val pass (samples, batches) {val}")
+    if not otb or not (0 <= otb["precision"] <= 1 and 0 <= otb["success"] <= 1):
+        fail(f"phase 15, tracking: run_eval on the primary gave {otb}")
+    log(f"  losses {losses}; val pass (samples, batches) {val}; run_eval on the primary: {otb}; "
+        f"{time.perf_counter() - t0:.1f} s; card {card}")
+    free_cuda()
+    return dict(val=val, otb=otb, seconds=time.perf_counter() - t0)
+
+
+def run_phase15(dev, card, tmp, profile_path=None):
+    """Phase 15: at a world of one over NCCL the end-task step on a 1x1 mesh,
+    the soak, the audit and the dry run; then the end tasks through the CLI
+    with ``--distributed`` and their one-process restores, tracking's
+    ``run_eval`` on the primary, and the visualization CLIs."""
+    import torch.distributed as dist
+
+    from vince_tpu_torch.tools import dryrun_multichip
+
+    paths, result = {}, {}
+    t0 = time.perf_counter()
+    laps = result["laps"] = {}
+
+    def lap(what):
+        laps[what] = time.perf_counter() - t0 - sum(laps.values())
+
+    mesh = start_world_of_one(dev)
+    try:
+        result["steps"] = run_end_task_mesh_steps(dev, mesh)
+        paths["phase 15 end-task step"] = {}
+        lap("end-task step")
+        soak_launches, soak = run_soak(dev, mesh, profile_path)
+        paths[f"phase 15 soak 1x1 + one device, {SOAK_STEPS} steps each"] = soak_launches
+        result["soak"] = {r["mesh"]: r["ms_per_step"] for r in soak}
+        lap("soak")
+        paths["phase 15 audit, 2 steps"], audit = run_audit(dev)
+        result["audit"] = {}
+        for c in audit["collectives"]:
+            result["audit"][c["role"]] = result["audit"].get(c["role"], 0) + c["bytes"]
+        reset_counts()
+        line = dryrun_multichip.dryrun_multichip(1, device=dev)
+        log(f"phase 15, the dry run at a world of one: {line}")
+        if not line.endswith(" OK"):
+            fail(f"phase 15: the dry run printed {line!r}")
+        paths["phase 15 dry run"] = read_counts()[0]
+        lap("audit, dry run")
+    finally:
+        dist.destroy_process_group()
+    free_cuda()
+    result["end_tasks"] = run_dist_end_tasks(card, tmp)
+    paths["phase 15 end tasks --distributed"] = {}
+    lap("end tasks --distributed")
+    result["tracking"] = run_dist_tracking(dev, card, tmp)
+    lap("tracking --distributed")
+    viz_paths, result["viz"] = run_visualizations(card, tmp)
+    paths.update(viz_paths)
+    lap("visualizations")
+    result["seconds"] = time.perf_counter() - t0
+    return paths, result
+
+
+def log_phase15(result, card):
+    steps = ", ".join(f"{k} {m:.3f} / {o:.3f}" for k, (m, o) in result["steps"].items())
+    log(f"phase 15 (world of one, NCCL): the end-task step 1x1 / one device ms/step: {steps}; "
+        f"the soak ms/step {result['soak']}; audit bytes by role {result['audit']}; end tasks "
+        f"--distributed " + ", ".join(f"{k} train {v['train_s']:.1f} s, {v['seconds']:.1f} s "
+                                      f"with the eval" for k, v in result["end_tasks"].items())
+        + f"; tracking {result['tracking']['seconds']:.1f} s, OTB {result['tracking']['otb']}; "
+        f"visualizations {result['viz']['files']}, cosine min {result['viz']['cos_min']:.6f}; "
+        f"phase 15 {result['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in result["laps"].items()) + f"); card {card}")
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--kernels-only", action="store_true",
@@ -3682,7 +4158,7 @@ def main():
                              "head configuration's) name before its extension")
     parser.add_argument("--end-tasks-only", action="store_true",
                         help="build, a 2-iteration pretraining run in place of phase 9's, "
-                             "then phases 10 and 11 (no kernel checks, no result line)")
+                             "then phases 10, 11 and 15 (no kernel checks, no result line)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -3706,6 +4182,7 @@ def main():
                 log(f"phase 10 {name}: {r}; card {card}")
             log(f"phase 11 {TRACKING_NAME}: {run_tracking(card, tmp, args.profile)[1]}; "
                 f"card {card}")
+            log_phase15(run_phase15(dev, card, tmp, args.profile)[1], card)
             return
         run_phases(args, dev, card, tmp)
     finally:
@@ -3713,7 +4190,7 @@ def main():
 
 
 def run_phases(args, dev, card, tmp):
-    """Phases 2-14, then the result lines."""
+    """Phases 2-15, then the result lines."""
     kernels = [check_queue_logsumexp(dev), check_affine_relu_dot_moments(dev),
                check_affine_conv3x3_stats(dev), *check_depthwise_conv(dev),
                *check_jpeg_kernels(dev)]
@@ -3750,6 +4227,8 @@ def run_phases(args, dev, card, tmp):
         paths.update(phase13_paths)
         phase14_paths, phase14 = run_phase14(card, tmp)
         paths.update(phase14_paths)
+        phase15_paths, phase15 = run_phase15(dev, card, tmp, args.profile)
+        paths.update(phase15_paths)
         for k in kernels:
             k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items() if k["name"] in n}
             k["launches"] = sum(k["launches_by_path"].values())
@@ -3812,6 +4291,7 @@ def run_phases(args, dev, card, tmp):
             f"{distributed['cli']['val']}; card {card}")
         log_phase13(phase13, card)
         log_phase14(phase14, card)
+        log_phase15(phase15, card)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

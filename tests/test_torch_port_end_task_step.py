@@ -94,7 +94,7 @@ def run(name):
     mp.setattr(jet, "augment_batch", lambda rng, images, cfg, train=True, dtype=jnp.float32,
                **kw: images.astype(dtype))
     mp.setattr(tet, "augment_batch", lambda gen, images, cfg, dtype=torch.float32, train=True,
-               group_size=1: images.to(dtype))
+               **kw: images.to(dtype))
     try:
         cfg_j = _config(jet, c, jnp.float32)
         opt_j = jet.build_optimizer(cfg_j, c["base_lr"], c["kind"],

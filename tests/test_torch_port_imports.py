@@ -33,10 +33,13 @@ for name in ("models.efficientnet", "ops.kernels.depthwise_kernel", "ops.kernels
              "run_end_task_eval", "models.tracking_model", "ops.xcorr", "tracking.losses",
              "tracking.ops", "tracking.siamfc_transforms", "tracking.sequences",
              "tracking.tracker", "tracking.experiments", "data.pair_dataset",
-             "data.got10k_dataset", "utils.torch_convert", "ops.infonce"):
+             "data.got10k_dataset", "utils.torch_convert", "ops.infonce", "parallel.launch",
+             "visualizations.attention", "visualizations.dataset_mosaic",
+             "visualizations.view_nearest_neighbors"):
     assert "vince_tpu_torch." + name in sys.modules, name
 # the tools beside the package (a directory without __init__.py)
-for name in ("convert_reference_checkpoint", "export_reference_checkpoint", "eval_retrieval"):
+for name in ("convert_reference_checkpoint", "export_reference_checkpoint", "eval_retrieval",
+             "soak_multichip", "audit_collectives", "dryrun_multichip"):
     importlib.import_module("vince_tpu_torch.tools." + name)
 bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "vince_tpu"))
 assert not bad, bad

@@ -8,49 +8,21 @@ ranks numpy inputs through files.
 """
 
 import os
-import socket
 import tempfile
-import traceback
+import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _entry(rank, world, port, out_dir, fn, args):
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            world_size=world, rank=rank)
-    try:
-        result = fn(rank, world, *args)
-        torch.save(result, os.path.join(out_dir, f"{rank}.pt"))
-    except Exception:
-        with open(os.path.join(out_dir, f"{rank}.err"), "w") as f:
-            f.write(traceback.format_exc())
-        raise
-    finally:
-        dist.destroy_process_group()
+from vince_tpu_torch.parallel.launch import free_port, run_ranks
 
 
 def spawn(fn, world: int, *args):
-    """Run ``fn(rank, world, *args)`` in ``world`` processes of one gloo group;
-    the list of their results, by rank."""
-    with tempfile.TemporaryDirectory() as out_dir:
-        try:
-            mp.spawn(_entry, args=(world, free_port(), out_dir, fn, args), nprocs=world)
-        except mp.ProcessRaisedException as e:
-            errors = [open(os.path.join(out_dir, n)).read() for n in sorted(os.listdir(out_dir))
-                      if n.endswith(".err")]
-            raise RuntimeError("a rank failed:\n" + "\n".join(errors)) from e
-        return [torch.load(os.path.join(out_dir, f"{r}.pt"), weights_only=False)
-                for r in range(world)]
+    """Run ``fn(rank, world, *args)`` in ``world`` processes of one gloo group,
+    one intra-op thread each; the list of their results, by rank."""
+    return run_ranks(fn, world, *args, threads=1)
 
 
 def spawn_processes(fn, world: int, *args):
@@ -276,3 +248,192 @@ def _torch(x):
     if isinstance(x, dict):
         return {k: _torch(v) for k, v in x.items()}
     return x
+
+
+# -------------------------------------------------------- end-task mesh step
+def _end_task_snapshot(state):
+    """The end-task state's tensors and counters as numpy: the encoder and
+    the decoder by name, the optimizer's buffers by (name, kind)."""
+    return dict(
+        step=state.step, count=state.optimizer.count,
+        encoder=_numpy(state.encoder.state_dict()), decoder=_numpy(state.decoder.state_dict()),
+        optimizer={(n, b): t.numpy().copy() for n, s in state.optimizer.state.items()
+                   for b, t in s.items()})
+
+
+RANK_TIMEOUT_S = 600  # how long a rank waits for a case's file
+
+
+def _wait_for(folder, name):
+    """The case ``name`` from ``folder/<name>.pt`` once the test has written
+    it (tensors mapped, not read); raises if the test wrote ``abort``."""
+    path, deadline = os.path.join(folder, f"{name}.pt"), time.time() + RANK_TIMEOUT_S
+    while not os.path.exists(path):
+        if os.path.exists(os.path.join(folder, "abort")) or time.time() > deadline:
+            raise RuntimeError(f"no case {name!r} in {folder}")
+        time.sleep(0.05)
+    return torch.load(path, mmap=True, weights_only=False)
+
+
+def mesh_end_task_rank(rank, world, folder, names):
+    """The end-task steps on a ``world`` x 1 mesh, for each case of
+    ``names``, read from ``folder`` as the test writes it (``_wait_for``): a
+    train step from each of the case's states (``checkpoint.end_task_state_tree``
+    trees) on the rank's rows of its batch, then the per-sample eval step
+    from ``eval_tree`` on its rows of ``eval_batch``. The augmentation is the
+    identity (the batches hold the augmented images). Returns, by case, each
+    step's metrics and the state after it, and the eval's rows."""
+    from vince_tpu_torch.parallel.mesh import Mesh, MeshSpec
+    from vince_tpu_torch.parallel.multihost import local_slice
+    from vince_tpu_torch.solvers import end_task_step as tet
+    from vince_tpu_torch.utils.checkpoint import load_end_task_state_tree
+    from vince_tpu_torch.utils.schedules import vince_lr_schedule
+
+    tet.augment_batch = lambda gen, images, cfg, dtype=torch.float32, **kw: images.to(dtype)
+    mesh = Mesh(MeshSpec(world, 1))
+
+    def mine(batch):
+        return {k: local_slice(v, mesh.data_index, world) for k, v in batch.items()}
+
+    out = {}
+    for name in names:
+        case = _wait_for(folder, name)
+        cfg = tet.EndTaskConfig(data_axis_size=world, **case["cfg"])
+        spec = tet.build_optimizer(cfg, case["base_lr"], case["kind"],
+                                   schedule=vince_lr_schedule(**case["schedule"]))
+        state = tet.init_end_task_state(1, cfg, spec, device="cpu")
+        step = tet.make_end_task_train_step(cfg, train=True, mesh=mesh)
+        steps = []
+        for tree, batch in zip(case["trees"], case["batches"]):
+            load_end_task_state_tree(state, tree)
+            _, metrics = step(state, mine(batch))
+            steps.append(dict(metrics=_numpy(metrics), state=_end_task_snapshot(state)))
+        load_end_task_state_tree(state, case["eval_tree"])
+        per = tet.make_end_task_train_step(cfg, train=False, per_sample=True, mesh=mesh)(
+            state, mine(case["eval_batch"]))
+        out[name] = dict(steps=steps, eval=_numpy(per))
+    return out
+
+
+# ---------------------------------------------------- end-task solvers (CLI)
+VAL_ITEMS = 49  # odd: the shards are 25 and 24 items, so one rank runs a filler batch
+
+
+def odd_val_solver():
+    """``EndTaskSunSceneSolver`` with a val split of ``VAL_ITEMS`` images
+    and a train split of 64 (``tests/helpers/multihost_endtask_worker.py``'s)."""
+    from vince_tpu_torch.data.synthetic_dataset import SyntheticImageDataset
+    from vince_tpu_torch.solvers.end_task_solvers import EndTaskSunSceneSolver
+
+    class OddValSolver(EndTaskSunSceneSolver):
+        def _make_dataset(self, subset):
+            n = VAL_ITEMS if subset == "val" else 64
+            return SyntheticImageDataset(self.args, subset, num_images=n)
+
+    return OddValSolver
+
+
+def odd_val_pass(argv, tree):
+    """The odd val split's pass (``run_eval``) of ``odd_val_solver`` from the
+    state ``tree``, in this process (a rank of the running group, if any):
+    the results and the counts, and the real items of this process's slice."""
+    from vince_tpu_torch import arg_parser
+    from vince_tpu_torch.utils.checkpoint import load_end_task_state_tree
+
+    solver = odd_val_solver()(arg_parser.parse_args(argv))
+    try:
+        load_end_task_state_tree(solver.state, tree)
+        _, loader = solver._fresh_val_loader()
+        try:
+            items = sum(len(hb["labels"]) for hb in loader)
+        finally:
+            loader.shutdown()
+        results = solver.run_eval()
+        return dict(results=results, batches=solver.last_val_batches,
+                    samples=solver.last_val_samples, items=items,
+                    mesh=None if solver.mesh is None else solver.cfg.data_axis_size)
+    finally:
+        solver.end()
+
+
+def small_val_splits(set_attr=setattr):
+    """The end-task solvers' val splits cut for the CPU: 33 images, 9 clips,
+    2 GOT-10k pairs a sequence (16), and the OTB fallback cut to one sequence
+    of 3 frames (``set_attr`` puts them in place: a test passes its
+    monkeypatch's)."""
+    from vince_tpu_torch.data.got10k_dataset import GOT10kDataset
+    from vince_tpu_torch.data.synthetic_dataset import SyntheticClipDataset, SyntheticImageDataset
+    from vince_tpu_torch.solvers.end_task_solvers import EndTaskBaseSolver
+    from vince_tpu_torch.tracking import experiments
+    from vince_tpu_torch.tracking.sequences import SyntheticSequences
+
+    class ShortSequences(SyntheticSequences):
+        def __init__(self, num_seqs=4, num_frames=20, **kw):
+            super().__init__(1, 3, **kw)
+
+    original = EndTaskBaseSolver._make_dataset
+
+    def make_dataset(self, subset):
+        if subset != "val":
+            return original(self, subset)
+        if self.task == "tracking":
+            return GOT10kDataset(self.args, "val", pairs_per_seq=2)
+        if self.task == "kinetics":
+            return SyntheticClipDataset(self.args, "val", num_clips=9,
+                                        num_images_to_return=self.args.num_frames)
+        return SyntheticImageDataset(self.args, "val", num_images=33)
+
+    set_attr(EndTaskBaseSolver, "_make_dataset", make_dataset)
+    set_attr(experiments, "SyntheticSequences", ShortSequences)
+
+
+def odd_val_rank(rank, world, folder, argv):
+    """``odd_val_pass`` on this rank of the running group, from the state
+    that the test writes to ``folder`` as the case ``state``."""
+    return odd_val_pass(argv, _wait_for(folder, "state"))
+
+
+def end_task_solvers_rank(rank, world, runs, tracking_eval=None):
+    """On this rank of the running group: ``solver_runner.main`` of each of
+    ``runs`` (argv lists with ``--distributed``; ``initialize`` leaves the
+    group to its caller) on ``small_val_splits``, each run's val pass's
+    counts and results, the saved state (numpy) and its mesh; then, given
+    ``tracking_eval``'s argv, ``run_eval`` of its tracking solver (the OTB
+    results)."""
+    from vince_tpu_torch import arg_parser, solver_runner
+    from vince_tpu_torch.solvers.end_task_solvers import EndTaskBaseSolver, EndTaskTrackingSolver
+    from vince_tpu_torch.utils.checkpoint import end_task_state_tree
+
+    small_val_splits()
+    run_val = EndTaskBaseSolver.run_val
+
+    def kept_run_val(self, *args, **kwargs):
+        self.val_results = run_val(self, *args, **kwargs)
+        return self.val_results
+
+    EndTaskBaseSolver.run_val = kept_run_val
+    out = {}
+    for name, argv in runs.items():
+        solver = solver_runner.main(argv)
+        out[name] = dict(batches=solver.last_val_batches, samples=solver.last_val_samples,
+                         results=solver.val_results, step=solver.state.step,
+                         mesh=None if solver.mesh is None else solver.cfg.data_axis_size,
+                         state=_numpy(end_task_state_tree(solver.state)))
+    EndTaskBaseSolver.run_val = run_val
+    if tracking_eval is not None:
+        solver = EndTaskTrackingSolver(arg_parser.parse_args(tracking_eval))
+        try:
+            out["otb"] = solver.run_eval()
+        finally:
+            solver.end()
+    return out
+
+
+# ------------------------------------------------------------ multichip tools
+def audit_jobs_rank(rank, world, jobs):
+    """``tools/audit_collectives.py``'s audit of each of ``jobs`` ((md, mq,
+    options) with md·mq = ``world``) on this rank of the running group."""
+    from vince_tpu_torch.tools import audit_collectives
+
+    return [audit_collectives.audit_rank(rank, world, md, mq, opts, "cpu")
+            for md, mq, opts in jobs]

@@ -17,7 +17,8 @@ Where the port differs:
 
 The end-task solvers (``EndTaskImagenetSolver``, ``EndTaskSunSceneSolver``,
 ``EndTaskKinetics400Solver``, ``EndTaskTrackingSolver``) take the same flags,
-through this package's ``solver_runner`` and ``run_end_task_eval``.
+through this package's ``solver_runner`` (``--distributed`` included) and
+``run_end_task_eval`` (one process).
 """
 
 import argparse
@@ -179,7 +180,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--mesh-queue-size", type=int, default=1,
-        help="Devices the queue is sharded over (with --distributed).",
+        help="Devices the queue is sharded over (with --distributed; an end task "
+        "has no queue and a data axis of every process).",
     )
     parser.add_argument(
         "--pytorch-gpu-ids", type=str, default=None,

@@ -21,7 +21,7 @@ falls back per file. Any other nvJPEG status is a failure of the library or
 the card, and raises.
 
 nvJPEG's decode state is not thread-safe: each host thread that decodes gets
-its own decoder (a decode state and a CUDA stream of its own), so the
+its own decoder (two decode states and a CUDA stream of its own), so the
 loader's threads decode side by side. ``DecodePool`` holds one decoder and
 decodes a batch in one call.
 """
@@ -176,14 +176,15 @@ def _check(status: int, what: str):
 
 
 class _CardDecoder:
-    """One nvJPEG decoder (a decode state) and one CUDA stream, for one host
-    thread."""
+    """One nvJPEG decoder (two decode states used in turn, ``jpeg_decode.cu``)
+    and one CUDA stream, for one host thread."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self._lib = _library()
         handle = ctypes.c_void_p()
-        _check(self._lib.vince_jpeg_decoder_new(ctypes.byref(handle)), "nvJPEG decoder")
+        with torch.cuda.device(device):  # the decoder's events belong to the stream's device
+            _check(self._lib.vince_jpeg_decoder_new(ctypes.byref(handle)), "nvJPEG decoder")
         self._handle = handle
         self.stream = torch.cuda.Stream(device)
 

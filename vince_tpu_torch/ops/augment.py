@@ -368,6 +368,19 @@ def draw_augment_params(generator: torch.Generator, batch: int, in_h: int, in_w:
                         perm=perm, gray=gray, blur=blur, sigma=sigma)
 
 
+def draw_rank_rows(generator: torch.Generator, batch: int, in_h: int, in_w: int,
+                   cfg: AugmentConfig, group_size: int = 1, data_size: int = 1,
+                   data_index: int = 0) -> AugmentDraws:
+    """Draws for the ``batch·data_size`` rows of a global batch, of which the
+    rank of data index ``data_index`` keeps its ``batch``: a row's draw does
+    not depend on the mesh's shape."""
+    draws = draw_augment_params(generator, batch * data_size, in_h, in_w, cfg, group_size)
+    if data_size == 1:
+        return draws
+    rows = slice(data_index * batch, (data_index + 1) * batch)
+    return AugmentDraws(**{f.name: getattr(draws, f.name)[rows] for f in dataclasses.fields(draws)})
+
+
 def apply_augment(images: torch.Tensor, draws: AugmentDraws, cfg: AugmentConfig,
                   dtype=torch.float32) -> torch.Tensor:
     """Deterministic train-mode augmentation of [B,H,W,3] uint8 (or unit
@@ -411,15 +424,21 @@ def val_resize_center_crop(images: torch.Tensor, size: Tuple[int, int]) -> torch
 
 
 def augment_batch(generator: torch.Generator, images: torch.Tensor, cfg: AugmentConfig,
-                  dtype=torch.float32, train: bool = True, group_size: int = 1) -> torch.Tensor:
+                  dtype=torch.float32, train: bool = True, group_size: int = 1,
+                  data_size: int = 1, data_index: int = 0) -> torch.Tensor:
     """Train-mode augmentation with per-sample randomness from ``generator``
     (one draw per ``group_size`` consecutive rows); with ``train=False`` the
-    val path, which draws nothing."""
+    val path, which draws nothing.
+
+    ``images`` are the rows of data index ``data_index`` of a global batch
+    ``data_size`` times as large: the draws are made for the global rows and
+    the rank keeps its own, so that a row's draw does not depend on the
+    mesh's shape (JAX's ``global_batch`` and ``row_offset``)."""
     if not train:
         imgs = images.float()
         if images.dtype == torch.uint8:
             imgs = imgs / 255.0
         return _finalize(val_resize_center_crop(imgs, cfg.size), cfg).to(dtype)
     b, in_h, in_w, _ = images.shape
-    return apply_augment(images, draw_augment_params(generator, b, in_h, in_w, cfg, group_size),
-                         cfg, dtype)
+    return apply_augment(images, draw_rank_rows(generator, b, in_h, in_w, cfg, group_size,
+                                                data_size, data_index), cfg, dtype)

@@ -12,8 +12,9 @@ after a crash. A failed run exits with code 1.
 
 With ``--distributed`` each process runs this entry point: the process group
 starts before the solver (``parallel/multihost.py``), only the primary
-process writes logs, and the group is destroyed at the end (a group that
-the caller started is left to it). Launch it with
+process writes logs, a failed process skips the crash save (a collective),
+and the group is destroyed at the end (a group that the caller started is
+left to it). Launch it with
 ``torchrun --nproc-per-node=N -m vince_tpu_torch.solver_runner --distributed
 ...`` or, per process, with ``--coordinator-address``, ``--num-processes``
 and ``--process-id``.
@@ -78,10 +79,15 @@ def _run(args):
     else:
         failed = False
     finally:
-        # the crash save comes before the shutdown
-        if args.save:
+        # the crash save comes before the shutdown; under --distributed it is
+        # a collective that peers stuck in the step's collectives never join,
+        # so a failed process skips it
+        if args.save and not (failed and multihost.is_multiprocess()):
             print("Saving models")
             solver.save()
+        elif args.save:
+            print("crash under --distributed: skipping the (collective) crash-save; resume "
+                  "from the last periodic checkpoint")
         solver.end()
         for logger in (train_logger, val_logger):
             if logger is not None:

@@ -1,6 +1,6 @@
 """End-task solvers (counterpart of ``vince_tpu/solvers/end_task_solvers.py``):
-the ImageNet and SUN-397 probes, the Kinetics-400 LSTM and SiamFC tracking on
-one device.
+the ImageNet and SUN-397 probes, the Kinetics-400 LSTM and SiamFC tracking, on
+one device or, under ``--distributed``, data-parallel across processes.
 
 - The encoder is restored from a VINCE pretraining checkpoint of the port
   (``--checkpoint-dir``, by default ``<base_logdir>/<title>/checkpoints_
@@ -22,21 +22,39 @@ one device.
   by cycling its items, and only the real items' per-sample metrics count.
   ``run_eval`` is that pass on a freshly built val loader; for tracking it
   is OTB-2015's one-pass evaluation of the tracker instead.
+
+Under ``--distributed`` (one process per GPU, ``parallel/multihost.py``)
+the step runs on a data axis of every process and a queue axis of one,
+whatever ``--mesh-queue-size`` says, as JAX builds it. Each process loads its
+shard of the train split, ``batch_size / processes`` items a batch. In the
+val pass each process reads its stride slice of the split and runs the same
+number of batches, ``ceil(ceil(len / processes) / items)``: a process whose
+slice has run dry runs its last batch again with zero weight, as JAX does to
+keep its collective step in line; the sums and the sample count are then
+added over the processes. The primary writes the checkpoint, and every
+process restores the same replicated state. Tracking's OTB evaluation runs
+on the primary alone while the others wait for its outcome, broadcast over a
+``gloo`` side group whose timeout (``OTB_BARRIER_TIMEOUT``) outlasts the
+tracker's run.
 """
 
 import dataclasses
+import datetime
 import os
 import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vince_tpu_torch.data import get_dataset
 from vince_tpu_torch.data.loader import PersistentDataLoader
 from vince_tpu_torch.data.prefetch import BatchPrefetcher, pull_with_kill, ready, stage
 from vince_tpu_torch.device import resolve_device
 from vince_tpu_torch.models import backbones
+from vince_tpu_torch.parallel import multihost
+from vince_tpu_torch.parallel.mesh import Mesh, MeshSpec
 from vince_tpu_torch.solvers.base_solver import BaseSolver
 from vince_tpu_torch.solvers.end_task_step import (
     EndTaskConfig,
@@ -45,7 +63,7 @@ from vince_tpu_torch.solvers.end_task_step import (
     make_end_task_train_step,
 )
 from vince_tpu_torch.solvers.vince_solver import (
-    mesh_shape, metrics_to_host, open_native_decode, refused_flags)
+    metrics_to_host, open_native_decode, refused_flags)
 from vince_tpu_torch.utils.checkpoint import (
     CheckpointManager,
     end_task_state_tree,
@@ -55,6 +73,19 @@ from vince_tpu_torch.utils.checkpoint import (
 from vince_tpu_torch.utils.meters import Stopwatch
 
 LABEL_KEYS = ("classifier_labels", "labels", "imagenet_labels")
+# how long the other processes wait for the primary's OTB evaluation
+OTB_BARRIER_TIMEOUT = datetime.timedelta(hours=4)
+
+
+def data_axis_size(args) -> int:
+    """The end task's data axis: every process, one GPU each. A larger
+    ``--mesh-data-size`` is clamped to them, as JAX clamps it to the devices;
+    a smaller one does not divide over them (JAX's check) and raises."""
+    pc = multihost.process_count()
+    asked = getattr(args, "mesh_data_size", 0)
+    if 0 < asked < pc:
+        raise ValueError(f"--mesh-data-size {asked} must be divisible by the {pc} processes")
+    return pc
 
 
 class EndTaskBaseSolver(BaseSolver):
@@ -66,13 +97,15 @@ class EndTaskBaseSolver(BaseSolver):
 
     def __init__(self, args, train_logger=None, val_logger=None):
         refused = refused_flags(args)
-        if getattr(args, "distributed", False):
-            refused.append("--distributed for an end task (ROADMAP.md §1 item 8b)")
         if refused:
             raise ValueError("not ported yet: " + "; ".join(refused))
-        mesh_shape(args, 1)  # one process: the data axis clamps to it, a queue axis raises
-        self.device = resolve_device(getattr(args, "platform", "cuda"))
+        platform = getattr(args, "platform", "cuda")
+        self.device = (multihost.local_device(platform) if dist.is_initialized()
+                       else resolve_device(platform))
         open_native_decode(args, self.device)
+        # a mesh only under a process group, its queue axis 1 whatever the flags say
+        md = data_axis_size(args)
+        self.mesh = Mesh(MeshSpec(md, 1)) if dist.is_initialized() else None
         self.seed = getattr(args, "seed", 0)
         self.train_loader: Optional[PersistentDataLoader] = None
         self._prefetcher: Optional[BatchPrefetcher] = None
@@ -96,9 +129,14 @@ class EndTaskBaseSolver(BaseSolver):
     def setup_dataloader(self):
         if self.args.disable_dataloader:
             return
+        items, pc = self._items_per_batch(), multihost.process_count()
+        if items % pc:
+            raise ValueError(f"{items} items/batch not divisible by {pc} processes — "
+                             "raise --batch-size")
         self.train_loader = PersistentDataLoader(
-            batch_size=self._items_per_batch(), num_workers=min(self.args.num_workers, 16),
-            never_ending=True, use_processes=getattr(self.args, "loader_processes", False))
+            batch_size=items // pc, num_workers=min(self.args.num_workers, 16),
+            never_ending=True, use_processes=getattr(self.args, "loader_processes", False),
+            num_shards=pc, shard_id=multihost.process_index())
         self.train_loader.set_dataset(self._make_dataset("train"))
         # val loaders are one-shot, built per pass (_fresh_val_loader)
 
@@ -131,6 +169,7 @@ class EndTaskBaseSolver(BaseSolver):
             freeze_feature_extractor=args.freeze_feature_extractor,
             use_attention=args.use_attention,
             compute_dtype=torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32,
+            data_axis_size=1 if self.mesh is None else self.mesh.data_size,
             head_lr_scales=self.head_lr_scales,
             bn_fold=getattr(args, "bn_fold", "none"),
             norm_kind=getattr(args, "norm_kind", "batchnorm"),
@@ -151,12 +190,14 @@ class EndTaskBaseSolver(BaseSolver):
             os.path.join(root, "checkpoints_" + args.description),
             os.path.join(root, "long_checkpoints"), max_to_keep=5,
             long_save_frequency=args.long_save_frequency,
-            tree_fn=end_task_state_tree, load_fn=load_end_task_state_tree)
+            tree_fn=end_task_state_tree, load_fn=load_end_task_state_tree, mesh=self.mesh)
+        # the state is replicated: every process restores the same file
         if args.restore and self.ckpt.restore(self.state) is not None:
             self.iteration = self.state.step * args.batch_size
             print(f"Restored end-task step {self.state.step}")
-        self.train_step = make_end_task_train_step(self.cfg, train=True)
-        self.metric_step = make_end_task_train_step(self.cfg, train=False, per_sample=True)
+        self.train_step = make_end_task_train_step(self.cfg, train=True, mesh=self.mesh)
+        self.metric_step = make_end_task_train_step(self.cfg, train=False, per_sample=True,
+                                                    mesh=self.mesh)
         self._prefetch_stream = (torch.cuda.Stream(self.device)
                                  if self.device.type == "cuda" else None)
 
@@ -221,11 +262,14 @@ class EndTaskBaseSolver(BaseSolver):
     # ------------------------------------------------------------------- val
     def _fresh_val_loader(self, dataset=None):
         """A one-shot loader (no cycling, no shuffle) over ``dataset``, by
-        default a freshly built val split."""
+        default a freshly built val split; with more than one process, this
+        process's stride slice of it."""
         dataset = dataset if dataset is not None else self._make_dataset("val")
+        pc = multihost.process_count()
         loader = PersistentDataLoader(
-            batch_size=self._items_per_batch(), num_workers=min(self.args.num_workers, 8),
-            shuffle=False, never_ending=False)
+            batch_size=self._items_per_batch() // pc, num_workers=min(self.args.num_workers, 8),
+            shuffle=False, never_ending=False, num_shards=pc,
+            shard_id=multihost.process_index())
         loader.set_dataset(dataset)
         return dataset, loader
 
@@ -251,26 +295,52 @@ class EndTaskBaseSolver(BaseSolver):
         batches, the last padded to the static shape, each metric the mean of
         its per-sample values over the real items. ``loader`` and ``dataset``
         replace the fresh val loader and its split; ``max_batches`` caps the
-        pass."""
+        pass. With more than one process each runs
+        ``ceil(ceil(len / processes) / items)`` batches of its slice, a slice
+        run dry repeating its last batch with zero weight, and the sums are
+        added over the processes."""
         t_start = time.perf_counter()
         own_loader = loader is None
         if own_loader:
             dataset, loader = self._fresh_val_loader()
-        items = self._items_per_batch()
-        expected = None if dataset is None else -(-len(dataset) // items)
+        pc = multihost.process_count()
+        items = self._items_per_batch() // pc  # this process's items a batch
+        expected = None
+        if dataset is not None:
+            per_process = -(-len(dataset) // pc)
+            expected = -(-per_process // items)
+        if pc > 1:
+            # without the count a short slice would stop early while the
+            # others run on (JAX's collective step would wait forever)
+            if dataset is None:
+                raise ValueError("a multi-process val pass needs `dataset` to derive its "
+                                 "batch count")
+            if len(dataset) < pc:
+                raise ValueError(f"val set ({len(dataset)} items) smaller than {pc} processes")
         sums: Dict[str, float] = {}
         n_samples = n_batches = 0
+        last_hb = None
         try:
-            for hb in loader:
+            it = iter(loader)
+            while True:
                 if max_batches is not None and n_batches >= max_batches:
                     break
-                label_key = next((k for k in LABEL_KEYS if k in hb), None)
-                if label_key is None:
-                    raise ValueError(f"val batch has none of the label keys {LABEL_KEYS}: "
-                                     f"{sorted(hb)}")
-                n_items = len(hb[label_key])
-                per = self.metric_step(self.state, self.convert_batch(
-                    self._pad_host_batch(hb, items, n_items)), self.seed)
+                if expected is not None and n_batches >= expected:
+                    break
+                try:
+                    hb = next(it)
+                except StopIteration:
+                    if pc == 1 or expected is None or last_hb is None:
+                        break
+                    hb, n_items = last_hb, 0  # filler, zero weight
+                else:
+                    label_key = next((k for k in LABEL_KEYS if k in hb), None)
+                    if label_key is None:
+                        raise ValueError(f"val batch has none of the label keys "
+                                         f"{LABEL_KEYS}: {sorted(hb)}")
+                    n_items = len(hb[label_key])
+                    hb = last_hb = self._pad_host_batch(hb, items, n_items)
+                per = self.metric_step(self.state, self.convert_batch(hb), self.seed)
                 keys = sorted(per)
                 totals = torch.stack([per[k][:n_items].double().sum() for k in keys])
                 for k, v in zip(keys, totals.cpu().tolist()):
@@ -280,6 +350,11 @@ class EndTaskBaseSolver(BaseSolver):
         finally:
             if own_loader:
                 loader.shutdown()
+        if pc > 1:
+            keys = sorted(sums)
+            totals = multihost.host_allsum([sums[k] for k in keys] + [n_samples])
+            sums = dict(zip(keys, totals[:-1].tolist()))
+            n_samples = int(totals[-1])
         if dataset is not None and max_batches is None and (
                 n_samples != len(dataset) or n_batches != expected):
             # e.g. unreadable files the loader dropped: reported, not fatal
@@ -388,7 +463,28 @@ class EndTaskTrackingSolver(EndTaskBaseSolver):
     def run_eval(self):
         """The tracker on OTB-2015 (or the synthetic fallback): precision,
         success, speed_fps, and ``synthetic`` and ``num_sequences`` for the
-        fallback."""
+        fallback. With more than one process the primary runs it on its copy
+        of the replicated state while the others wait for its outcome, a
+        broadcast over a ``gloo`` group whose timeout outlasts the run (an
+        NCCL collective's default timeout is shorter than an OTB run), and
+        return ``{}``; a timeout or the primary's failure raises on every
+        process."""
+        if not multihost.is_multiprocess():
+            return self._run_otb()
+        group = dist.new_group(backend="gloo", timeout=OTB_BARRIER_TIMEOUT)
+        outcome, results = ["ok"], {}
+        if multihost.is_primary():
+            try:
+                results = self._run_otb()
+            except Exception as e:
+                dist.broadcast_object_list([f"{type(e).__name__}: {e}"], src=0, group=group)
+                raise
+        dist.broadcast_object_list(outcome, src=0, group=group)
+        if outcome[0] != "ok":
+            raise RuntimeError(f"the primary's OTB evaluation failed: {outcome[0]}")
+        return results
+
+    def _run_otb(self):
         from vince_tpu_torch.tracking.experiments import ExperimentOTB
         from vince_tpu_torch.tracking.tracker import BatchedTrackerSiamFC, TrackerSiamFC
 

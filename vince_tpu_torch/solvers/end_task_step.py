@@ -22,6 +22,18 @@ the modules and the optimizer, and a step updates them in place and returns
 the same object. The steps run eagerly. The encoder is built as the JAX one
 is: no fold kernel and the grouped depthwise convolution, so no kernel of
 ``ops/kernels`` runs on these steps.
+
+With a ``mesh`` (``parallel/mesh.py``: one process per GPU, a data axis and
+a queue axis of one) a train step is JAX's ``shard_map`` step: each rank
+takes its rows (Kinetics: its clips) of the global batch, the augmentation
+draws for the global rows and keeps the rank's, so that its output does not
+depend on the mesh's shape; the gradients are averaged over the data axis
+before the update, a fine-tuned encoder's running averages after it (its
+BatchNorm normalises by the rank's own batch statistics: JAX's end task has
+no sync-BN), and so are the metrics. The per-sample eval step returns the
+rank's rows and calls no collective; the eval step of batch means averages
+them over the data axis. ``mesh=None`` calls no collective, and a 1x1 mesh
+calls each over a world of one.
 """
 
 import dataclasses
@@ -36,7 +48,9 @@ from vince_tpu_torch.models.linear_model import MultiLinearModel, classifier_los
 from vince_tpu_torch.models.tracking_model import SiamFCTrackingModel, tracking_losses
 from vince_tpu_torch.models.vince_model import VinceEncoder
 from vince_tpu_torch.ops.augment import AugmentConfig, _finalize, augment_batch
-from vince_tpu_torch.solvers.vince_step import _generator
+from vince_tpu_torch.parallel.collectives import flat_all_reduce_
+from vince_tpu_torch.parallel.mesh import Mesh
+from vince_tpu_torch.solvers.vince_step import _generator, _mean_metrics, _running_averages
 from vince_tpu_torch.utils.checkpoint import load_pretrain_encoder
 from vince_tpu_torch.utils.transforms import make_config
 
@@ -45,8 +59,7 @@ TASKS = ("classifier", "kinetics", "tracking")
 
 @dataclasses.dataclass(frozen=True)
 class EndTaskConfig:
-    """Static configuration of an end-task step: the JAX config's fields less
-    the mesh's axis size."""
+    """Static configuration of an end-task step: the JAX config's fields."""
 
     task: str  # "classifier" | "kinetics" | "tracking"
     backbone: str = "ResNet18"
@@ -58,6 +71,7 @@ class EndTaskConfig:
     freeze_feature_extractor: bool = True
     use_attention: bool = False
     compute_dtype: torch.dtype = torch.float32
+    data_axis_size: int = 1  # the mesh's data axis (1 without a mesh)
     lstm_hidden: int = 512
     # the heads' rates are base_lr times these: ImageNet (1, 0.01), SUN equal
     head_lr_scales: Tuple[float, ...] = (1.0, 0.01)
@@ -296,7 +310,17 @@ def _decode(cfg: EndTaskConfig, decoder: nn.Module, features, labels,
     return out
 
 
-def make_end_task_train_step(cfg: EndTaskConfig, train: bool = True, per_sample: bool = False):
+def _check_mesh(cfg: EndTaskConfig, mesh: Optional[Mesh]) -> None:
+    """The mesh's data axis is the config's, and its queue axis is 1 (an end
+    task has no queue)."""
+    shape = (1, 1) if mesh is None else (mesh.data_size, mesh.queue_size)
+    if shape != (cfg.data_axis_size, 1):
+        raise ValueError(f"the end task's data axis is {cfg.data_axis_size} and its queue axis "
+                         f"1, the mesh is {shape[0]}x{shape[1]}")
+
+
+def make_end_task_train_step(cfg: EndTaskConfig, train: bool = True, per_sample: bool = False,
+                             mesh: Optional[Mesh] = None):
     """With ``train``, the train step ``(state, batch, seed) → (state,
     metrics)``; else the eval step ``(state, batch, seed) → metrics``, with
     ``per_sample`` per-sample [B] tensors in row order instead of batch means
@@ -304,12 +328,13 @@ def make_end_task_train_step(cfg: EndTaskConfig, train: bool = True, per_sample:
 
     ``batch`` holds uint8 ``data`` [B, H, W, 3] (Kinetics: B = clips ×
     ``num_frames``, frame-major) and int32 ``labels`` [B] (one per clip) on
-    the state's device. The train step augments with draws from the run's
-    seed and the step (one per clip); the eval step takes the val path (resize
+    the state's device; on a mesh, the rank's rows of the global batch. The
+    train step augments with draws from the run's seed and the step (one per
+    clip) for the global rows; the eval step takes the val path (resize
     and centre crop), eval-mode BatchNorm and no gradient, and changes
     nothing. Metrics are each head's ``loss/classifier_loss_{i}`` and
     ``classifier_accuracy_{i}`` and ``loss/total_loss``, the sum of the
-    losses.
+    losses; on a mesh, batch means are averaged over the data axis.
 
     For tracking, ``batch`` holds uint8 ``exemplar`` [B, hz, wz, 3] and
     ``search`` [B, hx, wx, 3] crops and float ``labels`` [B, hy, wy], the
@@ -318,16 +343,33 @@ def make_end_task_train_step(cfg: EndTaskConfig, train: bool = True, per_sample:
     if train and per_sample:
         raise ValueError("per_sample is for the eval step")
     _check_task(cfg)
+    _check_mesh(cfg, mesh)
     full_f32_products()
     tcfg = make_config(cfg.transform, cfg.image_size)
     group = cfg.num_frames if cfg.task == "kinetics" else 1
+    d_idx = 0 if mesh is None else mesh.data_index
+    data_group = None if mesh is None else mesh.data_group
+
+    def _averaged(out):
+        if mesh is None:
+            return {k: v.detach() for k, v in out.items()}
+        return _mean_metrics(out, data_group)
 
     def _update(state: EndTaskState, out):
-        state.optimizer.zero_grad()
+        opt = state.optimizer
+        opt.zero_grad()
         out["loss/total_loss"].backward()
-        state.optimizer.step()
+        if mesh is not None:
+            flat_all_reduce_([p.grad for label, named in opt.groups.items()
+                              if label not in opt.frozen for _, p in named
+                              if p.grad is not None], data_group, divisor=cfg.data_axis_size)
+        opt.step()
+        if mesh is not None and not cfg.freeze_feature_extractor:
+            # the running averages moved with each rank's batch statistics
+            flat_all_reduce_(_running_averages(state.encoder), data_group,
+                             divisor=cfg.data_axis_size)
         state.step += 1
-        return state, {k: v.detach() for k, v in out.items()}
+        return state, _averaged(out)
 
     def train_step(state: EndTaskState, batch, seed: int = 0):
         if cfg.task == "tracking":
@@ -335,7 +377,8 @@ def make_end_task_train_step(cfg: EndTaskConfig, train: bool = True, per_sample:
             return _update(state, out)
         gen = _generator(batch["data"].device, seed, state.step, 0)
         images = augment_batch(gen, batch["data"], tcfg, cfg.compute_dtype, train=True,
-                               group_size=group)
+                               group_size=group, data_size=cfg.data_axis_size,
+                               data_index=d_idx)
         features = _extract(state.encoder, images, train=True,
                             frozen=cfg.freeze_feature_extractor)
         return _update(state, _decode(cfg, state.decoder, features, batch["labels"], reduce=True))
@@ -343,9 +386,12 @@ def make_end_task_train_step(cfg: EndTaskConfig, train: bool = True, per_sample:
     @torch.no_grad()
     def eval_step(state: EndTaskState, batch, seed: int = 0) -> Dict[str, torch.Tensor]:
         if cfg.task == "tracking":
-            return _track(cfg, state, batch, train=False, reduce=not per_sample)
-        images = augment_batch(None, batch["data"], tcfg, cfg.compute_dtype, train=False)
-        features = _extract(state.encoder, images, train=False, frozen=True)
-        return _decode(cfg, state.decoder, features, batch["labels"], reduce=not per_sample)
+            out = _track(cfg, state, batch, train=False, reduce=not per_sample)
+        else:
+            images = augment_batch(None, batch["data"], tcfg, cfg.compute_dtype, train=False)
+            features = _extract(state.encoder, images, train=False, frozen=True)
+            out = _decode(cfg, state.decoder, features, batch["labels"], reduce=not per_sample)
+        # per-sample rows stay the rank's own
+        return out if per_sample else _averaged(out)
 
     return train_step if train else eval_step

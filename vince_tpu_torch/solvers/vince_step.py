@@ -67,7 +67,7 @@ from vince_tpu_torch.models.resnet import BatchNorm, unrecorded_batch_stats
 from vince_tpu_torch.models.vince_model import (
     VinceEncoder, jigsaw_patchify, random_jigsaw_perms, split_vince_params)
 from vince_tpu_torch.ops.augment import (
-    AugmentConfig, AugmentDraws, _finalize, apply_augment, augment_batch, draw_augment_params)
+    AugmentConfig, AugmentDraws, _finalize, apply_augment, augment_batch, draw_rank_rows)
 from vince_tpu_torch.ops.ema import ema_update
 from vince_tpu_torch.ops.queue import QueueState, enqueue_sharded, init_queue
 from vince_tpu_torch.ops.sharded_infonce import sharded_multi_pair_infonce
@@ -406,17 +406,6 @@ class StepDraws:
     tau: Optional[torch.Tensor] = None
 
 
-def _draw_rows(gen: torch.Generator, b: int, h: int, w: int, tcfg: AugmentConfig,
-               data_size: int, data_index: int) -> AugmentDraws:
-    """Augmentation draws for the ``b·data_size`` global rows, of which the
-    rank keeps its ``b``: a row's draw does not depend on the mesh's shape."""
-    d = draw_augment_params(gen, b * data_size, h, w, tcfg)
-    if data_size == 1:
-        return d
-    rows = slice(data_index * b, (data_index + 1) * b)
-    return AugmentDraws(**{f.name: getattr(d, f.name)[rows] for f in dataclasses.fields(d)})
-
-
 def _draw_step(cfg: VinceConfig, batch, seed: int, step: int, mode: str = "train",
                jigsaw_side: Optional[str] = None, data_index: int = 0) -> StepDraws:
     """Draw a step's random numbers on the batch's device, for the global rows
@@ -434,7 +423,7 @@ def _draw_step(cfg: VinceConfig, batch, seed: int, step: int, mode: str = "train
         tcfg = _transform(cfg, src)
 
         def draw():
-            return _draw_rows(gen, b, h, w, tcfg, md, data_index)
+            return draw_rank_rows(gen, b, h, w, tcfg, data_size=md, data_index=data_index)
 
         if mode == "train":
             q = draw()
@@ -842,8 +831,8 @@ def make_key_prefill_fn(cfg: VinceConfig, src_idx: int, mesh: Optional[Mesh] = N
     @torch.no_grad()
     def prefill(state: VinceState, images, seed: int = 0) -> torch.Tensor:
         b, h, w, _ = images.shape
-        draws = _draw_rows(_generator(images.device, seed, src_idx, 2), b, h, w, tcfg,
-                           cfg.data_axis_size, place.data_index)
+        draws = draw_rank_rows(_generator(images.device, seed, src_idx, 2), b, h, w, tcfg,
+                               data_size=cfg.data_axis_size, data_index=place.data_index)
         imgs = apply_augment(images, draws, tcfg, cfg.compute_dtype)
         with bind(mesh), unrecorded_batch_stats(state.key_model):
             return _gathered(state.key_model(imgs)["embeddings"].float(), mesh)

@@ -141,14 +141,16 @@ def load_state_tree(state, tree: Dict, strict: bool = True, mesh=None) -> None:
 
 
 def end_task_state_tree(state) -> Dict:
-    """The tensors of an ``EndTaskState`` by name (they are the state's own)."""
+    """The tensors of an ``EndTaskState`` by name (they are the state's own;
+    on a mesh the state is replicated, so the tree is the same)."""
     return {"encoder": state.encoder.state_dict(), "decoder": state.decoder.state_dict(),
             "optimizer": state.optimizer.state_tree(), "step": int(state.step)}
 
 
 @torch.no_grad()
 def load_end_task_state_tree(state, tree: Dict, strict: bool = True) -> None:
-    """Copy an end-task checkpoint's tree into ``state``'s tensors in place."""
+    """Copy an end-task checkpoint's tree into ``state``'s tensors in place
+    (on a mesh, the whole replicated state on every rank)."""
     _copy_into(state.encoder.state_dict(), tree["encoder"], strict, "encoder")
     _copy_into(state.decoder.state_dict(), tree["decoder"], strict, "decoder")
     opt, saved = state.optimizer, tree["optimizer"]
@@ -204,18 +206,18 @@ def load_pretrain_encoder(encoder, tensors: Dict[str, torch.Tensor]) -> None:
 
 class CheckpointManager:
     """Rolling and long-save checkpoints of a ``VinceState``, or of another
-    state through ``tree_fn`` (state → tree of tensors) and ``load_fn``
-    (state, tree, strict → None, in place). With a ``mesh`` every process
+    replicated state through ``tree_fn`` (state → tree of tensors) and
+    ``load_fn`` (state, tree, strict → None, in place); the ``VinceState``'s
+    functions are given the mesh, for its queue shards. With a ``mesh`` every process
     calls ``save``; the primary writes, and the others wait at a barrier
     until it has its copy of the state."""
 
     def __init__(self, checkpoint_dir: str, long_save_checkpoint_dir: Optional[str] = None,
                  max_to_keep: int = 5, long_save_frequency: int = 25,
-                 tree_fn: Callable = state_tree, load_fn: Callable = load_state_tree,
+                 tree_fn: Optional[Callable] = None, load_fn: Optional[Callable] = None,
                  mesh=None):
-        if mesh is not None:
-            tree_fn = functools.partial(tree_fn, mesh=mesh)
-            load_fn = functools.partial(load_fn, mesh=mesh)
+        tree_fn = tree_fn or functools.partial(state_tree, mesh=mesh)
+        load_fn = load_fn or functools.partial(load_state_tree, mesh=mesh)
         self.tree_fn, self.load_fn, self.mesh = tree_fn, load_fn, mesh
         self.checkpoint_dir = os.path.abspath(checkpoint_dir)
         self.long_dir = (os.path.abspath(long_save_checkpoint_dir)
