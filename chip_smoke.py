@@ -120,8 +120,8 @@ Phases:
      port's texture generator through ``cv2.imwrite`` (R2V2 256 + 64 videos
      x 6 frames of 480x360, ImageNet 1000 classes x 2 + 600 val of 500x375,
      SUN-397's lists, a Kinetics-400 frame cache with 400 labels, GOT-10k
-     and OTB-2015 sequences); phase 9's ResNet50 CLI on the R2V2 tree for 16
-     iterations with the cv2 read and 16 with ``--native-decode`` (nvJPEG
+     and OTB-2015 sequences); phase 9's ResNet50 CLI on the R2V2 tree for 10
+     iterations with the cv2 read and 10 with ``--native-decode`` (nvJPEG
      and the JPEG kernels on the card in the loader's threads; K1 1 and K2
      26 a step at the eager calls and the capture, the JPEG kernels' launches,
      finite losses, the meters, the loader alone, the peak memory; with
@@ -155,7 +155,23 @@ Phases:
      phase 9's flags, the neighbour grid and the mosaic (``--with-tsne``
      where the host has ``sklearn``) on phase 9's checkpoint, and the
      neighbour grid's embeddings against the embed step through the plain
-     versions (row cosine >= 0.9995).
+     versions (row cosine >= 0.9995);
+ 16. the data-production pipeline: 64 videos written from the seed (MJPG,
+     640x360, 90 frames of 2-3 drifting textured scenes between letterbox
+     bands) stand in for YouTube's behind a downloader installed for the
+     phase (nothing is fetched); ``scrape/cache_video_dataset.py`` caches
+     them and 2 ids that fail to download into an R2V2 train split, and 16
+     of them into val with ``--only-use-shots`` (the codes, 4 frames a video
+     or a shot at 480 a side, a second run downloads nothing); phase 9's
+     ResNet50 CLI from that cache (``--dataset R2V2Dataset``), 8 iterations
+     and the val pass (K1 1 and K2 26 a step at the eager calls and the
+     capture, finite losses, frames/s); ``recreate_r2v2_dataset`` (its
+     JPEGs equal to cv2's seek-decode), ``download_kinetics`` (read by
+     ``Kinetics400Dataset``), ``download_r2v2`` on a ``file://`` tar of the
+     cache (its bytes), and ``download_pretrained_weights --backbone
+     ResNet18`` from a scripted Drive into a checkpoint that a solver
+     restores on the card (the embed step's embeddings of 8 frames against
+     the in-memory model's, cosine >= 1 - 1e-5).
 
 Phase 2 also holds the JPEG path's two kernels (``csrc/jpeg_decode.cu``:
 libjpeg's chroma upsampling and YCbCr -> RGB, and the resize; the
@@ -4146,6 +4162,461 @@ def log_phase15(result, card):
         + ", ".join(f"{k} {v:.1f}" for k, v in result["laps"].items()) + f"); card {card}")
 
 
+# phase 16: the data-production pipeline feeding pretraining. Videos written
+# from the seed (MJPG, 640x360, what ``download_video`` fetches at
+# ``max_height=360``) stand in for YouTube's: a downloader installed here
+# copies one; nothing is fetched
+PIPELINE = dict(videos=64, val_videos=16, missing=2, frames=90, hw=(360, 640), band=30,
+                fps=30, seed=16, workers=8)
+PIPELINE_ITERATIONS = 8
+PIPELINE_MIN_CACHED = 48  # of the 64 train videos; the others filtered out (code 2 or 3)
+SEEK_FRAMES = (3, 17, 42, 88)  # the frames that recreate_r2v2_dataset seek-decodes
+KINETICS_SEGMENT = (0.5, 2.5)  # seconds of each clip, at download_kinetics' 10 fps
+WEIGHTS_EMBED = 64  # ResNet18's released embedding size
+DRIVE_PAGE = ('<!DOCTYPE html><html><body><form id="download-form" '
+              'action="https://drive.usercontent.google.com/download" method="get">'
+              '<input type="hidden" name="id" value="{id}"/>'
+              '<input type="hidden" name="export" value="download"/>'
+              '<input type="hidden" name="confirm" value="t"/></form></body></html>')
+
+
+def scene_video(seed, frames, hw, band, speed=3):
+    """RGB frames of a video of 2-3 scenes: each a tinted texture (blobs and
+    pixel noise, blurred at sigma 0.8, sharp enough for the Laplacian filter)
+    drifting 1-3 pixels a frame between black letterbox bands; the scenes'
+    colour histograms part at each cut."""
+    import cv2
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    scenes = 2 + rng.randint(2)
+    cuts = sorted(rng.choice(np.arange(frames // 5, frames - frames // 5), scenes - 1,
+                             replace=False))
+    bounds = [0, *cuts, frames]
+    inner, margin = h - 2 * band, frames * speed + 8
+    out = []
+    for s in range(scenes):
+        tex = np.zeros((inner + margin, w + margin, 3), np.float32)
+        for scale, amp in ((32, 1.0), (8, 0.6)):
+            small = rng.rand((inner + margin) // scale + 2, (w + margin) // scale + 2, 3)
+            big = cv2.resize(small.astype(np.float32), (w + margin + 2 * scale,
+                                                        inner + margin + 2 * scale),
+                             interpolation=cv2.INTER_CUBIC)
+            tex += amp * big[scale:scale + inner + margin, scale:scale + w + margin]
+        tex = (tex - tex.min()) / (tex.max() - tex.min())
+        tex = 0.6 * tex + 0.4 * rng.rand(inner + margin, w + margin, 1).astype(np.float32)
+        tint = rng.rand(3).astype(np.float32) * 0.6 + 0.4
+        dy, dx = rng.randint(1, speed + 1, 2)
+        for k in range(bounds[s + 1] - bounds[s]):
+            img = np.zeros((h, w, 3), np.uint8)
+            crop = tex[k * dy: k * dy + inner, k * dx: k * dx + w] * tint * 255
+            img[band:band + inner] = np.clip(crop, 0, 255).astype(np.uint8)
+            out.append(cv2.GaussianBlur(img, (0, 0), 0.8))
+    return out
+
+
+def write_video(path, frames, fps):
+    """RGB frames into an MJPG ``.avi`` at ``fps``; returns ``path``."""
+    import cv2
+
+    h, w = frames[0].shape[:2]
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"), fps, (w, h))
+    for frame in frames:
+        writer.write(np.ascontiguousarray(frame[:, :, ::-1]))
+    writer.release()
+    if not os.path.getsize(path):
+        raise RuntimeError(f"cv2.VideoWriter wrote nothing to {path}")
+    return str(path)
+
+
+def write_pipeline_videos(root):
+    """``PIPELINE['videos']`` videos with 11-character ids, written by
+    ``cv2.VideoWriter`` from a pool of threads; {id: path}."""
+    import concurrent.futures
+
+    p = PIPELINE
+    os.makedirs(root, exist_ok=True)
+    ids = [f"{'ABCDEFGH'[v % 8]}{'pqrs'[v % 4]}pipe{v:05d}" for v in range(p["videos"])]
+
+    def write(v):
+        return write_video(os.path.join(root, f"{ids[v]}.avi"), scene_video(
+            p["seed"] * 1000 + v, p["frames"], p["hw"], p["band"]), p["fps"])
+
+    with concurrent.futures.ThreadPoolExecutor(p["workers"]) as ex:
+        return dict(zip(ids, ex.map(write, range(len(ids)))))
+
+
+class LocalDownloads:
+    """``youtube_utils.download_video`` while active: a fresh copy of the
+    library's video (the tools remove what they are given), None for an id
+    the library lacks; the ids asked for."""
+
+    def __init__(self, library, root):
+        import itertools
+
+        self.library, self.root, self.asked = library, root, []
+        self.serial = itertools.count()
+
+    def __call__(self, video_id, *args, **kwargs):
+        self.asked.append(video_id)
+        if video_id not in self.library:
+            return None
+        dest = os.path.join(self.root, f"{next(self.serial)}_{video_id}.avi")
+        return shutil.copy(self.library[video_id], dest)
+
+    def __enter__(self):
+        from vince_tpu_torch.utils import youtube_utils
+
+        os.makedirs(self.root, exist_ok=True)
+        self.original = youtube_utils.download_video
+        youtube_utils.download_video = self
+        return self
+
+    def __exit__(self, *exc):
+        from vince_tpu_torch.utils import youtube_utils
+
+        youtube_utils.download_video = self.original
+
+
+def cached_frames(split_dir):
+    """{video id: frame count} of a cache split, from its shard directories."""
+    counts = {}
+    for shard in os.listdir(split_dir):
+        sd = os.path.join(split_dir, shard)
+        if len(shard) == 2 and os.path.isdir(sd):
+            for name in os.listdir(sd):
+                vid = name.rsplit("_", 1)[0]
+                counts[vid] = counts.get(vid, 0) + 1
+    return counts
+
+
+def run_cacher(downloads, ids, missing, out, extra):
+    """``cache_video_dataset.main`` on ``ids`` + ``missing`` into ``out``: the
+    missing ids fail to download (code 1), each cached video has its 4
+    frames (or 4 a shot) of at most 480 pixels a side, and a second run
+    downloads nothing. Returns (cached {id: frames}, filtered-out ids, s)."""
+    import cv2
+
+    from vince_tpu_torch.scrape import cache_video_dataset
+
+    csv_path = out + "_ids.csv"
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(csv_path, "w") as f:
+        f.write("".join(f"{v}\n" for v in list(ids) + list(missing)))
+    argv = ["--csv-path", csv_path, "--output-path", out, "--num-workers",
+            str(PIPELINE["workers"])] + extra
+    log(f"phase 16: python -m vince_tpu_torch.scrape.cache_video_dataset {' '.join(argv)}")
+    t0 = time.perf_counter()
+    failed, no_images = cache_video_dataset.main(argv)
+    seconds = time.perf_counter() - t0
+    cached = cached_frames(out)
+    with open(os.path.join(out, "failed_video_ids.txt")) as f:
+        failed_file = f.read().split()
+    if sorted(failed) != sorted(missing) or sorted(failed_file) != sorted(missing):
+        fail(f"phase 16: the failed downloads {failed} ({failed_file} in the file), expected "
+             f"{missing}")
+    if set(cached) | set(no_images) != set(ids) or set(cached) & set(no_images):
+        fail(f"phase 16: {len(cached)} cached and {len(no_images)} filtered out of {len(ids)}")
+    if not cached or any(n % 4 or (n != 4 and not extra) for n in cached.values()):
+        fail(f"phase 16: frames per cached video {sorted(set(cached.values()))}")
+    first = os.path.join(out, next(iter(cached))[:2])
+    shape = cv2.imread(os.path.join(first, sorted(os.listdir(first))[0])).shape
+    if max(shape[:2]) != 480:
+        fail(f"phase 16: a cached frame of {shape}, expected a longer side of 480")
+    downloads.asked.clear()
+    again = cache_video_dataset.main(argv)
+    if again != ([], []) or downloads.asked or cached_frames(out) != cached:
+        fail(f"phase 16: the second run gave {again} and downloaded {downloads.asked}")
+    log(f"  {len(cached)} of {len(ids)} cached ({sum(cached.values())} frames of {shape}), "
+        f"{len(no_images)} filtered out, {len(failed)} failed downloads in {seconds:.1f} s; "
+        f"the second run downloaded nothing")
+    return cached, no_images, seconds
+
+
+def pipeline_pretraining(card, tmp, data_path):
+    """Phase 9's ResNet50 CLI from the cache: ``PIPELINE_ITERATIONS``
+    iterations and the val pass through ``solver_runner.main``; the
+    launches of each call (K1 1, K2 26 at the eager calls and the capture),
+    finite losses, the meters."""
+    from vince_tpu_torch import solver_runner
+
+    argv = [a for a in CLI_ARGV]
+    argv[argv.index("--dataset") + 1] = "R2V2Dataset"
+    argv[argv.index("--iterations-per-epoch") + 1] = str(PIPELINE_ITERATIONS)
+    argv += ["--data-path", data_path, "--title", "pipeline", "--description", "cache",
+             "--base-logdir", tmp, "--epochs", "1", "--no-save"]
+    log(f"phase 16, pretraining from the cache: python -m vince_tpu_torch.solver_runner "
+        f"{' '.join(argv)}")
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with CliRecord() as rec, contextlib.redirect_stdout(Tee(sys.stdout)):
+        solver_runner.main(argv)
+    wall = time.perf_counter() - t0
+    what = "pretraining from the cache"
+    launches = check_cli_calls(what, rec, "ResNet50", PIPELINE_ITERATIONS, 1)
+    (val,) = rec.of("run_val")
+    out = dict(launches=launches, laps=report_laps(what, rec, card), wall_s=wall,
+               val=(val["batches"], val["seconds"]),
+               peak_gib=torch.cuda.max_memory_reserved() / 2**30)
+    per_step = TRAIN_PHASES["ResNet50"]["per_step"]
+    log(f"  {what}: launches {launches} ({per_step['queue_logsumexp']} K1 and "
+        f"{per_step['affine_relu_dot_moments']} K2 a step at the eager calls and the capture, "
+        f"the prefill's and the val pass's beside them); val pass {val['batches']} batches in "
+        f"{val['seconds']:.3f} s; peak reserved {out['peak_gib']:.3f} GiB; {wall:.1f} s wall; "
+        f"card {card}")
+    free_cuda()
+    return out
+
+
+def seek_decoded(library, vid, frame, path):
+    """cv2's seek-decode of ``frame``, scaled to 480 pixels a side, written by
+    cv2.imwrite to ``path`` and read back (BGR)."""
+    import cv2
+
+    cap = cv2.VideoCapture(library[vid])
+    cap.set(cv2.CAP_PROP_POS_FRAMES, frame)
+    ok, image = cap.read()
+    cap.release()
+    if not ok:
+        fail(f"phase 16: cv2 could not seek {vid} to frame {frame}")
+    h, w = image.shape[:2]
+    scale = 480 / max(h, w)
+    cv2.imwrite(path, cv2.resize(image, (int(round(w * scale)), int(round(h * scale)))))
+    return cv2.imread(path)
+
+
+def run_other_tools(root, library, vids):
+    """``recreate_r2v2_dataset``, ``download_kinetics`` and ``download_r2v2``
+    on a few of the videos and on the cache: their files against cv2's
+    seek-decode, the Kinetics reader, and the cache's bytes."""
+    import argparse as ap
+    import json as js
+    import pathlib
+    import tarfile
+
+    import cv2
+
+    from vince_tpu_torch.data.kinetics_dataset import Kinetics400Dataset
+    from vince_tpu_torch.scrape import download_kinetics, download_r2v2, recreate_r2v2_dataset
+
+    out = {}
+    ids_file = os.path.join(root, "r2v2_ids.txt")
+    with open(ids_file, "w") as f:
+        f.write("".join(f"{v},{','.join(map(str, SEEK_FRAMES))}\n" for v in vids))
+    rec_dir = os.path.join(root, "recreated")
+    t0 = time.perf_counter()
+    ok = recreate_r2v2_dataset.main(["--ids-file", ids_file, "--output-path", rec_dir,
+                                     "--num-workers", "4"])
+    for v in vids:
+        for frame in SEEK_FRAMES:
+            got = cv2.imread(os.path.join(rec_dir, v[:2], f"{v}_{frame:06d}.jpg"))
+            if ok != len(vids) or got is None or not np.array_equal(
+                    got, seek_decoded(library, v, frame, os.path.join(root, "seek.jpg"))):
+                fail(f"phase 16: recreate_r2v2_dataset's {v} frame {frame} is not cv2's "
+                     f"seek-decode of it ({ok} videos recreated)")
+    out["recreate_s"] = time.perf_counter() - t0
+    log(f"  recreate_r2v2_dataset: {len(vids)} videos x {len(SEEK_FRAMES)} frames, each equal "
+        f"to cv2's seek-decode written by cv2.imwrite; {out['recreate_s']:.1f} s")
+
+    kin = os.path.join(root, "kinetics")
+    os.makedirs(os.path.join(kin, "annotations"))
+    ann = {v: {"annotations": {"label": f"action_{i % 2}", "segment": list(KINETICS_SEGMENT)}}
+           for i, v in enumerate(vids)}
+    with open(os.path.join(kin, "annotations", "train.json"), "w") as f:
+        js.dump(ann, f)
+    t0 = time.perf_counter()
+    ok = download_kinetics.main(["--annotation-json", os.path.join(kin, "annotations",
+                                                                   "train.json"),
+                                 "--output-path", os.path.join(kin, "train"),
+                                 "--num-workers", "4"])
+    frames = cached_frames(os.path.join(kin, "train"))
+    ds = Kinetics400Dataset(ap.Namespace(data_path=kin, num_frames=4, input_width=224, seed=0),
+                            "train", check_for_new_data=True)
+    item = ds[0]
+    clip = round((KINETICS_SEGMENT[1] - KINETICS_SEGMENT[0]) * 10)
+    if ok != len(vids) or frames != {v: clip for v in vids} or len(ds) != len(vids) or \
+            item is None or item["data"].shape != (4, CANVAS, CANVAS, 3):
+        fail(f"phase 16: download_kinetics wrote {frames} ({ok} clips); the reader has "
+             f"{len(ds)} clips, an item {None if item is None else item['data'].shape}")
+    out["kinetics_s"] = time.perf_counter() - t0
+    log(f"  download_kinetics: {len(vids)} clips x {clip} frames; Kinetics400Dataset reads "
+        f"{len(ds)} clips, an item {item['data'].shape}; {out['kinetics_s']:.1f} s")
+
+    t0 = time.perf_counter()
+    tree = os.path.join(root, "r2v2", "train")
+    tar_path = os.path.join(root, "r2v2_shard.tar")
+    with tarfile.open(tar_path, "w") as tf:
+        tf.add(tree, arcname="train")
+    urls = os.path.join(root, "urls.txt")
+    with open(urls, "w") as f:
+        f.write(f"0000 {pathlib.Path(tar_path).resolve().as_uri()}\n")
+    copy = os.path.join(root, "r2v2_copy")
+    failed = download_r2v2.main(["--urls-file", urls, "--output-path", copy])
+    want, got = tree_bytes(tree), tree_bytes(os.path.join(copy, "train"))
+    if failed or got != want or sorted(os.listdir(copy)) != ["train"]:
+        fail(f"phase 16: download_r2v2 failed {failed}; {len(got)} of {len(want)} files equal "
+             f"to the cache's: {sorted(os.listdir(copy))}")
+    out["r2v2_s"] = time.perf_counter() - t0
+    log(f"  download_r2v2: a file:// tar of the cache ({os.path.getsize(tar_path) / 2**20:.1f} "
+        f"MiB) extracted to {len(got)} files equal to the cache's; {out['r2v2_s']:.1f} s")
+    return out
+
+
+def tree_bytes(root):
+    out = {}
+    for dp, _, fs in os.walk(root):
+        for name in fs:
+            with open(os.path.join(dp, name), "rb") as f:
+                out[os.path.relpath(os.path.join(dp, name), root)] = f.read()
+    return out
+
+
+class ScriptedOpener:
+    """An opener for ``drive``: serves the payloads in order, records the URLs."""
+
+    def __init__(self, payloads):
+        self.payloads, self.urls = list(payloads), []
+
+    def open(self, url):
+        self.urls.append(url)
+        return io.BytesIO(self.payloads.pop(0))
+
+
+def run_weights_tool(dev, root, frames_dir, card):
+    """``download_pretrained_weights --backbone ResNet18`` from a scripted
+    Drive (the interstitial page, then a tar of a ResNet18 ``VinceModel``
+    state dict from seed 0), converted into a checkpoint directory; a solver
+    restores it on the card and its embed step's embeddings of 8 cached
+    frames are held to the in-memory model's (cosine >= 1 - 1e-5)."""
+    import tarfile
+    import types
+
+    import cv2
+
+    from vince_tpu_torch import arg_parser
+    from vince_tpu_torch.models.vince_model import VinceEncoder
+    from vince_tpu_torch.scrape import download_pretrained_weights, drive
+    from vince_tpu_torch.solvers.vince_solver import VinceSolver
+    from vince_tpu_torch.solvers.vince_step import make_embed_fn
+    from vince_tpu_torch.utils.torch_convert import export_vince_state_dict
+
+    t0 = time.perf_counter()
+    encoder = VinceEncoder("ResNet18", WEIGHTS_EMBED)
+    encoder.reset_parameters(torch.Generator().manual_seed(0))
+    weights = io.BytesIO()
+    torch.save(export_vince_state_dict(encoder.state_dict()), weights)
+    tar = io.BytesIO()
+    with tarfile.open(fileobj=tar, mode="w") as tf:
+        info = tarfile.TarInfo("vince_resnet18/vince_weights.pt")
+        info.size = len(weights.getvalue())
+        tf.addfile(info, io.BytesIO(weights.getvalue()))
+    file_id = download_pretrained_weights.DRIVE_IDS["ResNet18"]
+    opener = ScriptedOpener([DRIVE_PAGE.format(id=file_id).encode(), tar.getvalue()])
+    original = drive._default_opener
+    drive._default_opener = lambda: opener
+    out_dir = os.path.join(root, "pretrained")
+    try:
+        with contextlib.redirect_stdout(Tee(sys.stdout)):
+            ckpt = download_pretrained_weights.main(["--backbone", "ResNet18", "--output-path",
+                                                     out_dir])
+    finally:
+        drive._default_opener = original
+    if len(opener.urls) != 2 or not opener.urls[1].startswith(
+            "https://drive.usercontent.google.com/download?") or file_id not in opener.urls[1]:
+        fail(f"phase 16: download_pretrained_weights requested {opener.urls}")
+    argv = ["--solver", "VinceSolver", "--backbone", "ResNet18", "--vince-embedding-size",
+            str(WEIGHTS_EMBED), "--vince-queue-size", "65536", "--batch-size", "8",
+            "--input-width", "224", "--input-height", "224", "--title", "weights",
+            "--description", "resnet18", "--base-logdir", root, "--checkpoint-dir", ckpt]
+    with contextlib.redirect_stdout(Tee(sys.stdout)) as printed:
+        args = arg_parser.parse_args(argv)
+        args.disable_dataloader = True
+        solver = VinceSolver(args)
+    try:
+        if "Restored step 0" not in printed.getvalue():
+            fail("phase 16: the solver did not restore the converted checkpoint")
+        paths = sorted(os.path.join(dp, f) for dp, _, fs in os.walk(frames_dir) for f in fs
+                       if f.endswith(".jpg"))[:8]
+        images = np.stack([cv2.resize(cv2.imread(p)[:, :, ::-1], (224, 224)) for p in paths])
+        images = torch.from_numpy(images).to(dev)
+        reset_counts()
+        got, _ = solver.embed_fn(solver.state, images)
+        launches, plain = read_counts()
+        want, _ = make_embed_fn(solver.cfg)(types.SimpleNamespace(model=encoder.to(dev)),
+                                            images)
+    finally:
+        solver.end()
+    cos = torch.nn.functional.cosine_similarity(got.float(), want.float(), dim=1).cpu().numpy()
+    if got.shape != (8, WEIGHTS_EMBED) or cos.min() < 1 - 1e-5 or plain:
+        fail(f"phase 16: the restored embeddings {tuple(got.shape)} against the in-memory "
+             f"model's: cosine min {cos.min()}, plain calls {plain}")
+    seconds = time.perf_counter() - t0
+    log(f"  download_pretrained_weights --backbone ResNet18: Drive's page, then a "
+        f"{len(tar.getvalue()) / 2**20:.1f} MiB tar; converted into {os.path.basename(ckpt)}; "
+        f"restored on the card, the embed step's embeddings of 8 cached frames against the "
+        f"in-memory model's: cosine min {cos.min():.8f}; launches {launches}; {seconds:.1f} s; "
+        f"card {card}")
+    return launches, dict(cos_min=float(cos.min()), seconds=seconds)
+
+
+def run_phase16(dev, card, tmp):
+    """Phase 16: the videos, the cacher tool into an R2V2 tree (train, and val
+    with ``--only-use-shots``), pretraining from it, then the other tools."""
+    p = PIPELINE
+    paths, result = {}, {}
+    t0 = time.perf_counter()
+    laps = result["laps"] = {}
+
+    def lap(what):
+        laps[what] = time.perf_counter() - t0 - sum(laps.values())
+
+    root = os.path.join(tmp, "pipeline")
+    library = write_pipeline_videos(os.path.join(root, "library"))
+    lap("videos")
+    log(f"phase 16: {len(library)} videos of {p['frames']} frames, {p['hw'][1]}x{p['hw'][0]} "
+        f"MJPG at {p['fps']} fps, written from the seed in {laps['videos']:.1f} s")
+    ids = sorted(library)
+    missing = [f"Zzmissing{i:02d}" for i in range(p["missing"])]
+    r2v2 = os.path.join(root, "r2v2")
+    with LocalDownloads(library, os.path.join(root, "downloads")) as downloads:
+        cached, no_images, _ = run_cacher(downloads, ids, missing, os.path.join(r2v2, "train"),
+                                          [])
+        if len(cached) < PIPELINE_MIN_CACHED:
+            fail(f"phase 16: {len(cached)} of {len(ids)} videos cached, expected at least "
+                 f"{PIPELINE_MIN_CACHED}")
+        val_cached, val_out, _ = run_cacher(downloads, ids[:p["val_videos"]], [],
+                                            os.path.join(r2v2, "val"), ["--only-use-shots"])
+        result["cached"] = (len(cached), len(no_images), len(val_cached), len(val_out))
+        lap("cacher")
+        result["pretraining"] = pipeline_pretraining(card, tmp, r2v2)
+        paths[f"phase 16 CLI ResNet50 from the cache, {PIPELINE_ITERATIONS} iterations"] = \
+            result["pretraining"]["launches"]
+        lap("pretraining")
+        result["tools"] = run_other_tools(root, library, sorted(cached)[:4])
+        lap("recreate, kinetics, r2v2")
+    paths["phase 16 download_pretrained_weights, embed"], result["weights"] = run_weights_tool(
+        dev, root, os.path.join(r2v2, "val"), card)
+    lap("weights")
+    if os.listdir(os.path.join(root, "downloads")):
+        fail(f"phase 16: downloads left behind {os.listdir(os.path.join(root, 'downloads'))}")
+    result["seconds"] = time.perf_counter() - t0
+    return paths, result
+
+
+def log_phase16(result, card):
+    pre = result["pretraining"]
+    laps = pre["laps"]
+    log(f"phase 16 the pipeline: cached (train, filtered out, val, filtered out) "
+        f"{result['cached']}; pretraining from the cache " + ", ".join(
+            f"{m} {laps[m][0]:.3f} ms ({laps[m][1]:.3f}-{laps[m][2]:.3f})" for m in LAPS)
+        + f", {laps['frames_per_s']:.2f} frames/s, launches {pre['launches']}, val (batches, s) "
+        f"{pre['val']}, peak reserved {pre['peak_gib']:.3f} GiB; weights cosine min "
+        f"{result['weights']['cos_min']:.8f}; phase 16 {result['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in result["laps"].items()) + f"); card {card}")
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--kernels-only", action="store_true",
@@ -4190,11 +4661,18 @@ def main():
 
 
 def run_phases(args, dev, card, tmp):
-    """Phases 2-15, then the result lines."""
+    """Phases 2-16, then the result lines."""
+    t0 = time.perf_counter()
+    seconds = {}  # of each part, for the time limit of the whole script
+
+    def lap(what):
+        seconds[what] = round(time.perf_counter() - t0 - sum(seconds.values()), 1)
+
     kernels = [check_queue_logsumexp(dev), check_affine_relu_dot_moments(dev),
                check_affine_conv3x3_stats(dev), *check_depthwise_conv(dev),
                *check_jpeg_kernels(dev)]
     kernels[0]["at_queue_shards"] = check_other_shapes(dev)
+    lap("2 kernels")
     if not args.kernels_only:
         # each path is driven with the counts set to 0 just before its timed
         # steps and read just after; a kernel's launches are summed over the paths
@@ -4209,26 +4687,39 @@ def run_phases(args, dev, card, tmp):
                 paths[f"{b} {name}"] = launches
             del state
             times[b] = (eager, captured)
+            lap(f"3-6 {b}")
         _, lars = run_captured(dev, "ResNet50", kind="lars", timed=0)
         paths["ResNet50 captured LARS (at the capture)"] = lars["capture_launches"]
         paths["stand-alone op"] = {"affine_conv3x3_stats": run_conv_bn_op(dev)}
+        lap("5 LARS, 7 K3's op")
         head_paths, head_times = run_heads(dev, profile_path=args.profile)
         paths.update(head_paths)
+        lap("8 heads")
         cli_paths, cli = run_cli(dev, card, tmp)
         paths.update(cli_paths)
+        lap("9 CLI")
         end_paths, end_tasks = run_end_tasks(card, tmp)
         paths.update(end_paths)
+        lap("10 end tasks")
         tracking_paths, tracking = run_tracking(card, tmp, args.profile)
         paths.update(tracking_paths)
+        lap("11 tracking")
         dist_paths, distributed = run_distributed(dev, card, tmp,
                                                   times["ResNet50"][1]["ms_per_step"])
         paths.update(dist_paths)
+        lap("12 distributed")
         phase13_paths, phase13 = run_phase13(dev, card, tmp)
         paths.update(phase13_paths)
+        lap("13 remat, weights, retrieval")
         phase14_paths, phase14 = run_phase14(card, tmp)
         paths.update(phase14_paths)
+        lap("14 files")
         phase15_paths, phase15 = run_phase15(dev, card, tmp, args.profile)
         paths.update(phase15_paths)
+        lap("15 across processes")
+        phase16_paths, phase16 = run_phase16(dev, card, tmp)
+        paths.update(phase16_paths)
+        lap("16 pipeline")
         for k in kernels:
             k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items() if k["name"] in n}
             k["launches"] = sum(k["launches_by_path"].values())
@@ -4292,6 +4783,9 @@ def run_phases(args, dev, card, tmp):
         log_phase13(phase13, card)
         log_phase14(phase14, card)
         log_phase15(phase15, card)
+        log_phase16(phase16, card)
+    log(f"seconds by phase: {seconds}, {sum(seconds.values()):.1f} in all after the build; "
+        f"card {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

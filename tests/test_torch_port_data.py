@@ -61,15 +61,17 @@ def test_synthetic_items_are_bit_equal(family, repeatable, subset):
 
 
 def test_get_dataset_refuses_the_file_backed_datasets():
-    """Of the file-backed datasets only the video cacher, which downloads, is
-    refused; the other five are the port's classes."""
+    """None of the file-backed datasets is refused: the five readers and the
+    video cacher are the port's classes; an unknown name is refused."""
     assert get_dataset("SyntheticTextureVideoDataset") is tsyn.SyntheticTextureVideoDataset
     for name in ("R2V2Dataset", "GOT10KR2V2Dataset", "ImagenetDataset", "SunSceneDataset",
-                 "Kinetics400Dataset"):
+                 "Kinetics400Dataset", "VideoCacherDataset"):
         assert get_dataset(name).__name__ == name
         assert get_dataset(name).__module__.startswith("vince_tpu_torch.data.")
-    with pytest.raises(ValueError, match="ROADMAP.md §1 item 10"):
-        get_dataset("VideoCacherDataset")
+    cacher = get_dataset("VideoCacherDataset")
+    assert cacher.__module__ == "vince_tpu_torch.data.video_cacher_dataset"
+    with pytest.raises(KeyError, match="unknown dataset"):
+        get_dataset("YouTubeDataset")
 
 
 def _batches(module, dataset, n, **kw):

@@ -1,7 +1,8 @@
 """The port stands alone: importing every ``vince_tpu_torch`` module pulls in
-neither JAX nor the JAX package, and no source of the port or of
-``chip_smoke.py`` names them. Every module imports with ``cv2``, ``sklearn``,
-``tensorboardX`` and ``orbax`` absent, as on the GPU machine."""
+neither JAX nor the JAX package, reaches for the network, or starts a thread
+or a process; and no source of the port or of ``chip_smoke.py`` names them.
+Every module imports with ``cv2``, ``sklearn``, ``tensorboardX`` and
+``orbax`` absent, as on the GPU machine."""
 
 import pathlib
 import re
@@ -16,9 +17,12 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "vince_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 _IMPORT_ALL = """
-import importlib, pkgutil, sys
+import importlib, multiprocessing, pkgutil, socket, sys, threading
 for absent in ("cv2", "sklearn", "tensorboardX", "orbax"):
     sys.modules[absent] = None  # an import of it raises ImportError
+def refuse(*args, **kwargs):
+    raise OSError("an import reached for the network")
+socket.socket.connect = socket.create_connection = socket.getaddrinfo = refuse
 import vince_tpu_torch
 for m in pkgutil.walk_packages(vince_tpu_torch.__path__, "vince_tpu_torch."):
     importlib.import_module(m.name)
@@ -35,7 +39,10 @@ for name in ("models.efficientnet", "ops.kernels.depthwise_kernel", "ops.kernels
              "tracking.tracker", "tracking.experiments", "data.pair_dataset",
              "data.got10k_dataset", "utils.torch_convert", "ops.infonce", "parallel.launch",
              "visualizations.attention", "visualizations.dataset_mosaic",
-             "visualizations.view_nearest_neighbors"):
+             "visualizations.view_nearest_neighbors", "utils.video_utils", "utils.youtube_utils",
+             "data.video_cacher_dataset", "scrape.drive", "scrape.cache_video_dataset",
+             "scrape.recreate_r2v2_dataset", "scrape.download_kinetics", "scrape.download_r2v2",
+             "scrape.search_youtube_for_urls", "scrape.download_pretrained_weights"):
     assert "vince_tpu_torch." + name in sys.modules, name
 # the tools beside the package (a directory without __init__.py)
 for name in ("convert_reference_checkpoint", "export_reference_checkpoint", "eval_retrieval",
@@ -43,6 +50,9 @@ for name in ("convert_reference_checkpoint", "export_reference_checkpoint", "eva
     importlib.import_module("vince_tpu_torch.tools." + name)
 bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "vince_tpu"))
 assert not bad, bad
+# no import started a thread or a process
+assert threading.active_count() == 1, threading.enumerate()
+assert not multiprocessing.active_children()
 from vince_tpu_torch.utils.logger import Logger
 assert Logger("unused").writer is None  # the in-memory history only
 """

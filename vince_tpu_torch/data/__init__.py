@@ -2,8 +2,9 @@
 the CLI takes, and their classes. The file-backed datasets read JPEGs under
 ``--data-path`` / ``--imagenet-data-path`` with ``cv2``, or on the run's
 device with ``--native-decode``. ``GOT10kDataset`` reads the GOT-10k
-sequences under ``--data-path``, or makes synthetic ones in memory. The
-video cacher, which downloads, is not ported (``ROADMAP.md`` §1 item 10)."""
+sequences under ``--data-path``, or makes synthetic ones in memory.
+``VideoCacherDataset`` downloads videos and caches their filtered frames in
+R2V2's layout (``scrape/cache_video_dataset.py`` drives it)."""
 
 from vince_tpu_torch.data.got10k_dataset import GOT10kDataset
 from vince_tpu_torch.data.imagenet_dataset import ImagenetDataset, SunSceneDataset
@@ -18,6 +19,7 @@ from vince_tpu_torch.data.synthetic_dataset import (
     SyntheticTextureVideoDataset,
     SyntheticVideoDataset,
 )
+from vince_tpu_torch.data.video_cacher_dataset import VideoCacherDataset
 
 __all__ = [
     "GOT10kDataset",
@@ -37,14 +39,8 @@ __all__ = [
     "SyntheticTextureClipDataset",
 ]
 
-NOT_PORTED = ("VideoCacherDataset",)
-
 
 def get_dataset(name: str):
-    if name in NOT_PORTED:
-        raise ValueError(f"{name} downloads videos and is not ported yet (ROADMAP.md §1 "
-                         f"item 10); the ported datasets are "
-                         f"{sorted(set(__all__) - set(NOT_PORTED))}")
     if name not in __all__:
         raise KeyError(f"unknown dataset {name!r}; choices: {__all__}")
     return globals()[name]
