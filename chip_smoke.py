@@ -49,10 +49,10 @@ Phases:
      texture videos) for one epoch of 24 iterations, its val pass and saves,
      with each call's launches counted and the solver's own time meters per
      iteration; the restore of its step-24 checkpoint held bit-identical to
-     the files; the resumed run to step 48; 16 iterations with the loader's
-     workers in processes; 8 iterations of an EfficientNet-B0 through the
-     parser and the solver (K4); the loader alone, in threads and in
-     processes;
+     the files; the resumed run to step 48; 8 iterations of an
+     EfficientNet-B0 through the parser and the solver (K4); the loader
+     alone, in threads (the loader's worker processes run in phase 14,
+     with cv2 reads and with ``--native-decode``);
  10. the end tasks on phase 9's ResNet50 checkpoint, each through
      ``solver_runner.main`` (one epoch: its iterations, a save, the val pass)
      and then ``run_end_task_eval.main`` on the saved state: the frozen
@@ -121,14 +121,23 @@ Phases:
      x 6 frames of 480x360, ImageNet 1000 classes x 2 + 600 val of 500x375,
      SUN-397's lists, a Kinetics-400 frame cache with 400 labels, GOT-10k
      and OTB-2015 sequences); phase 9's ResNet50 CLI on the R2V2 tree for 10
-     iterations with the cv2 read and 10 with ``--native-decode`` (nvJPEG
-     and the JPEG kernels on the card in the loader's threads; K1 1 and K2
-     26 a step at the eager calls and the capture, the JPEG kernels' launches,
-     finite losses, the meters, the loader alone, the peak memory; with
-     ``--native-decode`` no stream refused and no cv2 read); phase 10's
-     three end tasks on their trees with ``--native-decode`` (4 iterations
-     and the val pass from phase 9's checkpoint, finite losses, no stream
-     refused and no cv2 read);
+     iterations with the cv2 read, 10 with ``--native-decode`` (nvJPEG
+     and the JPEG kernels on the card in the loader's threads), 10 with
+     ``--loader-processes`` (the cv2 read in spawned worker processes) and
+     10 with ``--native-decode --loader-processes`` (the card's decode in
+     each spawned worker, on its own CUDA context; the JPEG kernels'
+     launches and the decodes summed from the workers); K1 1 and K2 26 a
+     step at the eager calls and the capture, the JPEG kernels' launches
+     (none without ``--native-decode``), finite losses, the meters, the
+     loader alone (cv2, threads), the peak memory and the card's memory in
+     use; with ``--native-decode`` no stream refused, no cv2 read and every
+     file decoded by nvJPEG; the loader's first 4 batches of the R2V2 val tree
+     (repeatable draws) from one thread and from worker processes,
+     bit-equal, with the pool's start-up and the card's memory in use
+     before and with it; phase 10's three end tasks on their trees with
+     ``--native-decode`` and the ImageNet probe also with
+     ``--loader-processes`` (4 iterations and the val pass from phase 9's
+     checkpoint, finite losses, no stream refused and no cv2 read);
      tracking on the GOT-10k tree (2 iterations, cv2 reads) and
      ``run_end_task_eval`` on the OTB-2015 tree (its scores, the tracker's
      frames/s); ``tools/extract_embeddings.py`` on the R2V2 val tree with
@@ -2020,8 +2029,8 @@ def report_laps(what, rec, card):
     return out
 
 
-def time_loader(processes, batches=16, ds=None, batch_size=32):
-    """The train loader alone, with the CLI's default workers, on ``ds`` (by
+def time_loader(batches=16, ds=None, batch_size=32):
+    """The train loader alone, with the CLI's default threads, on ``ds`` (by
     default phase 9's: batches of 32 videos x (4 + 4) frames): ms per batch
     over ``batches`` batches, after as many as its workers and its queue
     hold ready at the start (the steady state of a long run)."""
@@ -2035,8 +2044,7 @@ def time_loader(processes, batches=16, ds=None, batch_size=32):
         ds = SyntheticTextureVideoDataset(ap.Namespace(input_width=224, num_frames=4), "train",
                                           num_videos=256, num_images_to_return=4)
     workers = min(multiprocessing.cpu_count(), 16)
-    loader = PersistentDataLoader(batch_size=batch_size, num_workers=workers,
-                                  use_processes=processes)
+    loader = PersistentDataLoader(batch_size=batch_size, num_workers=workers)
     loader.set_dataset(ds)
     try:
         for _ in range(workers + loader.prefetch + 1):
@@ -2083,6 +2091,26 @@ def free_cuda():
     torch.cuda.empty_cache()
 
 
+class Laps:
+    """The seconds of a phase's parts: ``laps(what)`` keeps, under ``what``,
+    the time since the last lap (or the start); ``seconds by phase`` prints
+    them."""
+
+    def __init__(self):
+        self.t0, self.seconds = time.perf_counter(), {}
+
+    def __call__(self, what):
+        now = time.perf_counter()
+        self.seconds[what] = round(now - self.t0, 1)
+        self.t0 = now
+
+
+def in_use_gib():
+    """The card's memory in use by every process on it (``mem_get_info``)."""
+    free, total = torch.cuda.mem_get_info()
+    return (total - free) / 2**30
+
+
 def solver_iterations(what, argv, backbone, iterations, tmp):
     """The parser and the solver as ``main`` builds them, ``iterations``
     train iterations, no val, no save; the launches and the record."""
@@ -2095,6 +2123,7 @@ def solver_iterations(what, argv, backbone, iterations, tmp):
         solver = VinceSolver(arg_parser.parse_args(argv))
         try:
             solver.run_n_train_iterations(iterations)
+            rec.in_use_gib = in_use_gib()  # the loader's workers still alive
         finally:
             solver.end()
     del solver
@@ -2105,8 +2134,8 @@ def solver_iterations(what, argv, backbone, iterations, tmp):
 def run_cli(dev, card, tmp):
     """Phase 9: ``solver_runner.main`` for one epoch of 24 iterations and its
     val pass; the restore of its step-24 checkpoint against the files; the
-    resumed run to 48; short runs through the parser and the solver with the
-    loader in processes and with an EfficientNet-B0; the loader alone. Logs
+    resumed run to 48; a short run through the parser and the solver with an
+    EfficientNet-B0; the loader alone. Logs
     and checkpoints go to ``tmp``, where phase 10 reads the pretraining
     checkpoint. Returns the launches of each path and the numbers."""
     from vince_tpu_torch import arg_parser, solver_runner
@@ -2114,6 +2143,7 @@ def run_cli(dev, card, tmp):
     from vince_tpu_torch.utils.checkpoint import state_tree
 
     paths, result = {}, {}
+    parts = Laps()
     argv = CLI_ARGV + PRETRAIN_RUN + ["--base-logdir", tmp]
     log(f"phase 9: python -m vince_tpu_torch.solver_runner {' '.join(CLI_ARGV)} "
         f"--epochs 1 (logs and checkpoints in a temporary directory)")
@@ -2139,6 +2169,7 @@ def run_cli(dev, card, tmp):
              "batches (256 videos, 32 a batch)")
     del solver, rec
     free_cuda()
+    parts("epoch 1")
 
     log("phase 9, resume: the solver of --epochs 2 restores step 24; its state against "
         "the checkpoint's files")
@@ -2157,6 +2188,7 @@ def run_cli(dev, card, tmp):
         check.end()
     del check
     free_cuda()
+    parts("restore check")
     with CliRecord() as rec, contextlib.redirect_stdout(Tee(sys.stdout)) as out:
         solver = solver_runner.main(argv + ["--epochs", "2"])
     if "Restored step 24" not in out.getvalue() or solver.state.step != 48:
@@ -2166,13 +2198,7 @@ def run_cli(dev, card, tmp):
     result["resumed_laps"] = report_laps("resumed epoch 2", rec, card)
     del solver, rec
     free_cuda()
-
-    log("phase 9, ResNet50 with --loader-processes: the parser and the solver, 16 "
-        "iterations, no val, no save")
-    paths["CLI ResNet50 --loader-processes, 16 iterations"], rec = solver_iterations(
-        "--loader-processes", CLI_ARGV + ["--loader-processes", "--description", "processes"],
-        "ResNet50", 16, tmp)
-    result["processes_laps"] = report_laps("--loader-processes", rec, card)
+    parts("resumed epoch 2")
 
     log("phase 9, EfficientNet-B0: the parser and the solver, --dw-kind pallas, 8 "
         "iterations, no val")
@@ -2181,13 +2207,15 @@ def run_cli(dev, card, tmp):
     paths["CLI EfficientNetB0, 8 iterations"], _ = solver_iterations(
         "B0", b0_argv + ["--dw-kind", "pallas", "--description", "b0"], "EfficientNetB0", 8,
         tmp)
+    parts("B0")
 
     result["item_ms"] = time_item()
-    result["loader_ms"] = {"threads": time_loader(False), "processes": time_loader(True)}
+    result["loader_ms"] = time_loader()
     log(f"phase 9, loader alone: one texture video (scene + 8 frames) {result['item_ms']:.3f} ms "
-        f"on one thread; a batch of 32 videos {result['loader_ms']['threads'][0]:.3f} ms with "
-        f"{result['loader_ms']['threads'][1]} threads, "
-        f"{result['loader_ms']['processes'][0]:.3f} ms with as many processes")
+        f"on one thread; a batch of 32 videos {result['loader_ms'][0]:.3f} ms with "
+        f"{result['loader_ms'][1]} threads")
+    parts("loader alone")
+    result["seconds"] = parts.seconds
     return paths, result
 
 
@@ -2225,14 +2253,17 @@ class EndTaskRecord:
     """While active, wraps the end-task solvers' ``setup_model`` (the first
     setup's encoder against the pretraining checkpoint's query encoder),
     ``run_train_iteration`` (its meters' laps and loss), ``run_val`` (its
-    counts, seconds and results) and ``_make_dataset`` (a val split of
-    ``val_items`` images, where given, so that its last batch is partial)."""
+    counts, seconds and results), ``_make_dataset`` (a val split of
+    ``val_items`` images, where given, so that its last batch is partial),
+    ``setup_dataloader`` and ``end``; ``spans`` keeps each call's (name,
+    start, end) on the host's clock."""
 
-    WRAPPED = ("setup_model", "run_train_iteration", "run_val", "_make_dataset")
+    WRAPPED = ("setup_dataloader", "setup_model", "run_train_iteration", "run_val",
+               "_make_dataset", "end")
 
     def __init__(self, pretrain_encoder, val_items=None):
         self.pretrain, self.val_items = pretrain_encoder, val_items
-        self.encoder_checks, self.iterations, self.vals = [], [], []
+        self.encoder_checks, self.iterations, self.vals, self.spans = [], [], [], []
 
     def __enter__(self):
         from vince_tpu_torch.solvers.end_task_solvers import EndTaskBaseSolver
@@ -2249,7 +2280,9 @@ class EndTaskRecord:
                 from vince_tpu_torch.data.synthetic_dataset import SyntheticImageDataset
 
                 return SyntheticImageDataset(solver.args, "val", num_images=self.val_items)
+            t0 = time.perf_counter()
             out = orig(solver, *args, **kwargs)
+            self.spans.append((name, t0, time.perf_counter()))
             if name == "setup_model":
                 encoder = solver.state.encoder.state_dict()
                 self.encoder_checks.append(set(encoder) <= set(self.pretrain) and all(
@@ -2523,7 +2556,7 @@ def tracking_host_ms(solver, pairs=16, reps=16):
         for size in (120, 247)}
     out["mean colour"] = median_ms(lambda i: np.mean(frame, axis=(0, 1), dtype=float), reps)
     out["pair"] = median_ms(lambda i: ds[i], pairs)
-    out["loader batch"], workers = time_loader(False, batches=6, ds=ds,
+    out["loader batch"], workers = time_loader(batches=6, ds=ds,
                                                batch_size=solver.args.batch_size)
     out["loader pairs/s"] = solver.args.batch_size / out["loader batch"] * 1e3
     return out, (h, w), workers
@@ -3484,37 +3517,42 @@ def file_cli_run(what, argv, card, tmp):
     launches, rec = solver_iterations(what, argv, "ResNet50", FILE_ITERATIONS, tmp)
     jpeg = {k: v for k, v in read_counts()[0].items() if k in JPEG_KERNELS}
     out = {"launches": {**launches, **jpeg}, "laps": report_laps(what, rec, card),
-           "peak_gib": torch.cuda.max_memory_reserved() / 2**30, "decodes": dict(native.counts)}
-    log(f"  {what}: peak reserved {out['peak_gib']:.3f} GiB; decodes {out['decodes']}; "
-        f"the JPEG kernels' launches {jpeg}")
+           "peak_gib": torch.cuda.max_memory_reserved() / 2**30, "decodes": dict(native.counts),
+           "in_use_gib": rec.in_use_gib}
+    log(f"  {what}: peak reserved {out['peak_gib']:.3f} GiB; the card's memory in use after "
+        f"the iterations {out['in_use_gib']:.3f} GiB; decodes {out['decodes']}; the JPEG "
+        f"kernels' launches {jpeg}")
     clean_tree_decodes(what, out["decodes"])
     return out
 
 
 def clean_tree_decodes(what, decodes):
     """A run on a tree of clean JPEGs: no stream refused, no cv2 read in
-    place of the card's decode."""
-    if decodes["cv2_reads"] or decodes["failed"]:
+    place of the card's decode, every file handed to the decode decoded."""
+    if (decodes["cv2_reads"] or decodes["failed"]
+            or decodes["files"] != decodes["nvjpeg"] + decodes["plain"]):
         fail(f"phase 14 {what}: {decodes['failed']} streams refused, {decodes['cv2_reads']} "
-             f"cv2 reads on a tree of clean JPEGs ({decodes})")
+             f"cv2 reads, {decodes['files']} files for {decodes['nvjpeg'] + decodes['plain']} "
+             f"decodes on a tree of clean JPEGs ({decodes})")
 
 
-def r2v2_loader_ms(tree, native_decode):
+def r2v2_loader_ms(tree):
     """The loader alone on the R2V2 tree (batches of 32 videos x (4 + 4)
-    frames, the CLI's threads), ms per batch."""
+    frames, the CLI's threads, cv2 reads), ms per batch."""
     import argparse as ap
 
     from vince_tpu_torch.data.r2v2_dataset import R2V2Dataset
 
     args = ap.Namespace(input_width=224, num_frames=4, data_path=tree, seed=0,
-                        native_decode=native_decode, platform="cuda")
-    return time_loader(False, ds=R2V2Dataset(args, "train", num_images_to_return=4))
+                        platform="cuda")
+    return time_loader(ds=R2V2Dataset(args, "train", num_images_to_return=4))
 
 
-def file_end_task(name, tmp, dirs, card):
-    """Phase 10's run ``name`` on its tree with ``--native-decode``: 4
-    iterations and the val pass from phase 9's step-48 checkpoint, no save;
-    finite losses, the val pass's counts, the JPEG kernels' launches."""
+def file_end_task(name, tmp, dirs, card, extra=()):
+    """Phase 10's run ``name`` on its tree with ``--native-decode`` and the
+    flags ``extra``: 4 iterations and the val pass from phase 9's step-48
+    checkpoint, no save; finite losses, the val pass's counts, the JPEG
+    kernels' launches."""
     from vince_tpu_torch import native, solver_runner
 
     spec = END_TASK_RUNS[name]
@@ -3525,7 +3563,7 @@ def file_end_task(name, tmp, dirs, card):
     argv = END_TASK_ARGV[:-len(PRETRAIN_RUN)] + argv + [
         "--solver", spec["solver"], "--title", "files", "--description", tree,
         "--base-logdir", tmp, "--checkpoint-dir", pretrain_dir, "--native-decode", "--no-save",
-        "--iterations-per-epoch", str(FILE_END_TASK_ITERATIONS)]
+        "--iterations-per-epoch", str(FILE_END_TASK_ITERATIONS), *extra]
     log(f"phase 14, {name} from files: python -m vince_tpu_torch.solver_runner "
         f"{' '.join(argv)}")
     free_cuda()
@@ -3555,15 +3593,30 @@ def file_end_task(name, tmp, dirs, card):
     clean_tree_decodes(name, native.counts)
     laps = {m: float(np.median([it["laps"][m] * 1e3 for it in rec.iterations[1:]]))
             for m in END_TASK_LAPS}
+    # the first iteration's wait for its batch: the loader's start and its first batch
+    first_wait_s = rec.iterations[0]["laps"]["data_cache_time"]
+    its = [sp for sp in rec.spans if sp[0] == "run_train_iteration"]
+
+    def spent(name):
+        return sum(e - b for n, b, e in rec.spans if n == name)
+
+    parts = {"loaders": spent("setup_dataloader"), "model": spent("setup_model")}
+    parts["else to the first iteration"] = its[0][1] - t0 - sum(parts.values())
+    parts.update({"iterations": its[-1][2] - its[0][1], "val": spent("run_val"),
+                  "end": spent("end")})
+    parts["other"] = wall - sum(parts.values())
     result = dict(losses=losses, val=(val["samples"], val["batches"], val["seconds"]),
-                  laps=laps, launches=launches, decodes=dict(native.counts), wall_s=wall,
+                  laps=laps, first_wait_s=first_wait_s, wall_parts=parts, launches=launches,
+                  decodes=dict(native.counts), wall_s=wall,
                   frames_per_s=items * spec["frames"] / laps["total_time"] * 1e3,
                   peak_gib=torch.cuda.max_memory_reserved() / 2**30)
     log(f"  losses {losses[0]:.4f} ... {losses[-1]:.4f}, all finite; val pass (samples, "
         f"batches, s) {result['val']}: {val['results']}; median total_time "
         f"{laps['total_time']:.3f} ms, data_cache_time {laps['data_cache_time']:.3f} over "
-        f"iterations 2-{FILE_END_TASK_ITERATIONS} ({result['frames_per_s']:.2f} frames/s); "
-        f"decodes {result['decodes']}; launches {launches}; {wall:.1f} s wall; card {card}")
+        f"iterations 2-{FILE_END_TASK_ITERATIONS} ({result['frames_per_s']:.2f} frames/s), "
+        f"{first_wait_s:.3f} s at the first; decodes {result['decodes']}; launches {launches}; "
+        f"{wall:.1f} s wall (" + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+        + f"); card {card}")
     del solver
     free_cuda()
     return result
@@ -3649,59 +3702,167 @@ def file_embeddings(tmp, dirs, card):
     return paths, dict(rows=expected, cos_min=float(cos.min()), seconds=(ta, tb))
 
 
+PROCESSES = "--native-decode --loader-processes"  # the label of phase 14's runs in processes
+# phase 14's pretraining runs from files: cv2 reads and the card's decode, in
+# the loader's threads and in its worker processes
+RUNS_FROM_FILES = (("cv2", []), ("--native-decode", ["--native-decode"]),
+                   ("--loader-processes", ["--loader-processes"]),
+                   (PROCESSES, ["--native-decode", "--loader-processes"]))
+LOADER_CHECK_BATCHES = 4  # the loader's first batches, from threads and from processes
+
+
+def loader_threads_against_processes(tree, card):
+    """The loader's first ``LOADER_CHECK_BATCHES`` batches of the R2V2 val
+    tree with ``repeatable`` draws (32 videos x (4 + 4) frames), from one
+    thread and from the CLI's default count of worker processes, held
+    bit-equal: both decode with nvJPEG on this card. Beside them: each
+    pool's start-up (``set_dataset`` to its first batch), the card's memory
+    in use by every process (``mem_get_info``) before the loader and with
+    it, and the JPEG kernels' launches and decodes (the workers' summed
+    here)."""
+    import argparse as ap
+    import multiprocessing
+
+    from vince_tpu_torch import native
+    from vince_tpu_torch.data.loader import PersistentDataLoader
+    from vince_tpu_torch.data.r2v2_dataset import R2V2Dataset
+
+    args = ap.Namespace(input_width=224, num_frames=4, data_path=tree, seed=0,
+                        native_decode=True, platform=CARD)
+    workers = min(multiprocessing.cpu_count(), 16)
+
+    def first_batches(processes):
+        free_cuda()
+        reset_counts()
+        native.reset_counts()
+        before = in_use_gib()
+        loader = PersistentDataLoader(batch_size=32, num_workers=workers if processes else 1,
+                                      use_processes=processes)
+        t0 = time.perf_counter()
+        loader.set_dataset(R2V2Dataset(args, "val", num_images_to_return=4, repeatable=True))
+        try:
+            batches = [loader.get_batch(timeout=300)]
+            start_s = time.perf_counter() - t0
+            batches += [loader.get_batch(timeout=300) for _ in range(LOADER_CHECK_BATCHES - 1)]
+            with_gib = in_use_gib()
+        finally:
+            loader.shutdown()
+        launches, plain = read_counts()
+        if set(launches) != set(JPEG_KERNELS) or plain:
+            fail(f"phase 14 loader, processes={processes}: launches {launches}, plain calls "
+                 f"{plain}; the JPEG kernels only")
+        clean_tree_decodes(f"loader, processes={processes}", native.counts)
+        return batches, dict(start_s=start_s, before_gib=before, with_gib=with_gib,
+                             launches=launches, decodes=dict(native.counts))
+
+    threads, one = first_batches(False)
+    processes, pool = first_batches(True)
+    for b, (got, ref) in enumerate(zip(processes, threads, strict=True)):
+        for k, v in ref.items():
+            same = np.array_equal(got[k], v) if isinstance(v, np.ndarray) else got[k] == v
+            if not same:
+                fail(f"phase 14 loader: batch {b}'s {k} from {workers} worker processes differs "
+                     f"from one thread's")
+    pool["workers"] = workers
+    frames = threads[0]["data"].shape[0] + threads[0]["queue_data"].shape[0]
+    log(f"  loader, threads against processes: the first {LOADER_CHECK_BATCHES} batches of the "
+        f"val tree ({frames} frames each, repeatable draws) bit-equal; first batch after "
+        f"{pool['start_s']:.3f} s from {workers} worker processes, {one['start_s']:.3f} s from "
+        f"one thread; the card's memory in use {pool['before_gib']:.3f} GiB before the pool, "
+        f"{pool['with_gib']:.3f} with it ({(pool['with_gib'] - pool['before_gib']) / workers:.3f}"
+        f" a worker; one thread {one['before_gib']:.3f} -> {one['with_gib']:.3f}); the JPEG "
+        f"kernels' launches in the workers, summed here, {pool['launches']}, decodes "
+        f"{pool['decodes']}; card {card}")
+    return {"processes": pool, "thread": one}
+
+
 def run_phase14(card, tmp):
-    """Phase 14: the trees, pretraining from files (cv2, then --native-decode)
-    with the loader alone, the end tasks and tracking from files, the
-    embedding tool with both decoders."""
+    """Phase 14: the trees, pretraining from files (cv2, --native-decode in
+    the loader's threads, then in its worker processes, with the loader's
+    batches from both held bit-equal) with the loader alone, the end tasks
+    and tracking from files (the ImageNet probe also with worker processes),
+    the embedding tool with both decoders."""
     paths, result = {}, {}
     t0 = time.perf_counter()
+    parts = Laps()
     root = os.path.join(tmp, "files")
     dirs, files = write_file_trees(root)
     result["trees_s"] = time.perf_counter() - t0
     log(f"phase 14: {files} files written in {result['trees_s']:.1f} s under a temporary "
         f"directory ({FILE_TREES})")
+    parts("trees")
     base = [a for a in CLI_ARGV]
     base[base.index("--dataset") + 1] = "R2V2Dataset"
     base += ["--data-path", dirs["r2v2"]]
-    for label, extra in (("cv2", []), ("--native-decode", ["--native-decode"])):
+    for n, (label, extra) in enumerate(RUNS_FROM_FILES):
         what = f"R2V2 files, {label}"
         log(f"phase 14, pretraining from files: the parser and the solver, {' '.join(base)} "
             f"{' '.join(extra)}, {FILE_ITERATIONS} iterations, no val, no save")
-        r = file_cli_run(what, base + extra + ["--description", f"files{len(extra)}"], card, tmp)
-        if extra and not all(r["launches"].get(k) for k in JPEG_KERNELS):
+        r = file_cli_run(what, base + extra + ["--description", f"files{n}"], card, tmp)
+        native_decode = "--native-decode" in extra
+        if native_decode and not all(r["launches"].get(k) for k in JPEG_KERNELS):
             fail(f"phase 14 {what}: a JPEG kernel was not launched ({r['launches']})")
+        if not native_decode and (any(r["launches"].get(k) for k in JPEG_KERNELS)
+                                  or any(r["decodes"].values())):
+            fail(f"phase 14 {what}: the card's decode ran without --native-decode "
+                 f"({r['launches']}, {r['decodes']})")
         paths[f"phase 14 CLI ResNet50 {what}, {FILE_ITERATIONS} iterations"] = r["launches"]
-        r["loader_ms"] = r2v2_loader_ms(dirs["r2v2"], bool(extra))
-        log(f"  {what}: the loader alone {r['loader_ms'][0]:.3f} ms a batch of 32 videos with "
-            f"{r['loader_ms'][1]} threads; card {card}")
+        if label == PROCESSES:
+            r["loader"] = loader_threads_against_processes(dirs["r2v2"], card)
+        elif label == "cv2":
+            # the threads' loader alone with nvJPEG is cut: the bit-equal
+            # check above times its first batches from one thread
+            r["loader_ms"] = r2v2_loader_ms(dirs["r2v2"])
+            log(f"  {what}: the loader alone {r['loader_ms'][0]:.3f} ms a batch of 32 videos "
+                f"with {r['loader_ms'][1]} threads; card {card}")
         result[label] = r
+        parts(label)
     result["end_tasks"] = {}
     for name in FILE_END_TASKS:
         r = file_end_task(name, tmp, dirs, card)
         paths[f"phase 14 end task {name} from files"] = r["launches"]
         result["end_tasks"][name] = r
+    parts("end tasks")
+    r = file_end_task("ResNet50-IN-probe", tmp, dirs, card, ["--loader-processes"])
+    paths["phase 14 end task ResNet50-IN-probe from files, --loader-processes"] = r["launches"]
+    result["end_task_processes"] = r
+    parts("IN-probe --loader-processes")
     result["tracking"] = file_tracking(tmp, dirs, card)
     paths["phase 14 tracking from files"] = {}
+    parts("tracking")
     embed_paths, result["embeddings"] = file_embeddings(tmp, dirs, card)
     paths.update(embed_paths)
+    parts("embeddings")
+    result["parts"] = parts.seconds
     result["seconds"] = time.perf_counter() - t0
     return paths, result
 
 
 def log_phase14(result, card):
-    for label in ("cv2", "--native-decode"):
+    for label, _ in RUNS_FROM_FILES:
         r = result[label]
         laps = r["laps"]
+        loader = ""
+        if "loader_ms" in r:
+            loader = f"; the loader alone {r['loader_ms'][0]:.3f} ms a batch of 32 videos"
+        elif "loader" in r:
+            pool = r["loader"]["processes"]
+            loader = (f"; the pool's first batch after {pool['start_s']:.3f} s, "
+                      f"{pool['with_gib'] - pool['before_gib']:.3f} GiB more in use on the card "
+                      f"with its {pool['workers']} workers")
         log(f"phase 14 pretraining from R2V2 files, {label}: " + ", ".join(
             f"{m} {laps[m][0]:.3f} ms ({laps[m][1]:.3f}-{laps[m][2]:.3f})" for m in LAPS)
-            + f", {laps['frames_per_s']:.2f} frames/s; the loader alone {r['loader_ms'][0]:.3f} "
-            f"ms a batch of 32 videos; peak reserved {r['peak_gib']:.3f} GiB; decodes "
+            + f", {laps['frames_per_s']:.2f} frames/s{loader}; peak reserved "
+            f"{r['peak_gib']:.3f} GiB, in use on the card {r['in_use_gib']:.3f} GiB; decodes "
             f"{r['decodes']}; card {card}")
-    for name, r in result["end_tasks"].items():
+    for name, r in [*result["end_tasks"].items(),
+                    ("ResNet50-IN-probe --loader-processes", result["end_task_processes"])]:
         log(f"phase 14 {name} from files (--native-decode): total_time "
             f"{r['laps']['total_time']:.3f} ms, data_cache_time {r['laps']['data_cache_time']:.3f}"
-            f", {r['frames_per_s']:.2f} frames/s, val (samples, batches, s) {r['val']}, peak "
-            f"reserved {r['peak_gib']:.3f} GiB; card {card}")
+            f" ({r['first_wait_s']:.3f} s at the first iteration), {r['frames_per_s']:.2f} "
+            f"frames/s, val (samples, batches, s) {r['val']}, peak reserved "
+            f"{r['peak_gib']:.3f} GiB, {r['wall_s']:.1f} s wall ("
+            + ", ".join(f"{k} {v:.1f}" for k, v in r["wall_parts"].items()) + f"); card {card}")
     t = result["tracking"]
     log(f"phase 14 tracking from files: OTB-2015 tree precision {t['eval']['precision']:.4f}, "
         f"success {t['eval']['success']:.4f}, tracker {t['eval']['speed_fps']:.1f} frames/s; "
@@ -4110,11 +4271,8 @@ def run_phase15(dev, card, tmp, profile_path=None):
 
     paths, result = {}, {}
     t0 = time.perf_counter()
-    laps = result["laps"] = {}
-
-    def lap(what):
-        laps[what] = time.perf_counter() - t0 - sum(laps.values())
-
+    lap = Laps()
+    result["laps"] = lap.seconds
     mesh = start_world_of_one(dev)
     try:
         result["steps"] = run_end_task_mesh_steps(dev, mesh)
@@ -4567,11 +4725,8 @@ def run_phase16(dev, card, tmp):
     p = PIPELINE
     paths, result = {}, {}
     t0 = time.perf_counter()
-    laps = result["laps"] = {}
-
-    def lap(what):
-        laps[what] = time.perf_counter() - t0 - sum(laps.values())
-
+    lap = Laps()
+    laps = result["laps"] = lap.seconds
     root = os.path.join(tmp, "pipeline")
     library = write_pipeline_videos(os.path.join(root, "library"))
     lap("videos")
@@ -4662,12 +4817,8 @@ def main():
 
 def run_phases(args, dev, card, tmp):
     """Phases 2-16, then the result lines."""
-    t0 = time.perf_counter()
-    seconds = {}  # of each part, for the time limit of the whole script
-
-    def lap(what):
-        seconds[what] = round(time.perf_counter() - t0 - sum(seconds.values()), 1)
-
+    lap = Laps()
+    seconds = lap.seconds  # of each part, for the time limit of the whole script
     kernels = [check_queue_logsumexp(dev), check_affine_relu_dot_moments(dev),
                check_affine_conv3x3_stats(dev), *check_depthwise_conv(dev),
                *check_jpeg_kernels(dev)]
@@ -4731,8 +4882,7 @@ def run_phases(args, dev, card, tmp):
             log(f"phase 8 {what}: " + ", ".join(
                 f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}" for k, v in t.items())
                 + f"; card {card}")
-        for what, laps in (("epoch 1", cli["laps"]), ("resumed epoch 2", cli["resumed_laps"]),
-                           ("--loader-processes", cli["processes_laps"])):
+        for what, laps in (("epoch 1", cli["laps"]), ("resumed epoch 2", cli["resumed_laps"])):
             log(f"phase 9 {what}: " + ", ".join(
                 f"{m} {laps[m][0]:.3f} ms ({laps[m][1]:.3f}-{laps[m][2]:.3f})" for m in LAPS)
                 + f", {laps['frames_per_s']:.2f} frames/s; phase 5's captured ResNet50 step "
@@ -4784,8 +4934,10 @@ def run_phases(args, dev, card, tmp):
         log_phase14(phase14, card)
         log_phase15(phase15, card)
         log_phase16(phase16, card)
+    parts = {} if args.kernels_only else {"9": cli["seconds"], "14": phase14["parts"],
+                                           "15": phase15["laps"]}
     log(f"seconds by phase: {seconds}, {sum(seconds.values()):.1f} in all after the build; "
-        f"card {card}")
+        f"parts of phases 9, 14 and 15: {parts}; card {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

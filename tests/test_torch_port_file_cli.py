@@ -3,8 +3,8 @@
 - Two training iterations of ``vince_tpu_torch.solver_runner`` (ResNet18,
   64x64 crops) on a tiny R2V2 tree written with ``cv2``, with the ``cv2``
   read and with ``--native-decode`` (its plain version on the CPU): the
-  val pass's finite losses, finite weights, a checkpoint; the refusal of
-  ``--native-decode --loader-processes``.
+  val pass's finite losses, finite weights, a checkpoint (with worker
+  processes: ``tests/test_torch_port_native_decode_processes.py``).
 - ``vince_tpu_torch/tools/extract_embeddings.py`` against
   ``tools/extract_embeddings.py`` on the same JPEG tree with carried
   weights: the JAX tool's solver embeds with a fresh JAX state, which
@@ -80,11 +80,6 @@ def test_two_iterations_from_jpeg_files(tree, tmp_path, capsys, decode):
         assert native.counts["plain"] > 0 and native.counts["cv2_reads"] == 0
     else:
         assert native.counts["plain"] == 0
-
-
-def test_native_decode_in_loader_processes_is_refused(tree, tmp_path):
-    with pytest.raises(ValueError, match="ROADMAP.md §1 item 6a"):
-        solver_runner.main(_cli_argv(tree, tmp_path, "--native-decode", "--loader-processes"))
 
 
 def _tool_argv(tree, tmp, output, *extra):

@@ -2,8 +2,7 @@
 ``--test-first``, saves at the epoch boundaries, a finished run that trains
 nothing more, a resume when ``--epochs`` grows, and a crash that saves and
 exits 1. Beside it: the prefill's draws per call, the jigsaw warm-up's
-both-sides step, the flag the port refuses, the remat and reference-weight
-flags, the multi-GPU flags on one process, and the end-task solvers it
+both-sides step, the remat and reference-weight flags, the multi-GPU flags on one process, and the end-task solvers it
 builds."""
 
 import os
@@ -162,14 +161,6 @@ def test_jigsaw_warmup_builds_the_both_sides_step(tmp_path, sides):
         assert s.select_step() in (s.train_step_jigsaw_q, s.train_step_jigsaw_k)
     finally:
         s.end()
-
-
-@pytest.mark.parametrize("extra,item", [(["--native-decode", "--loader-processes"],
-                                          "item 6a")])
-def test_flags_of_what_is_not_ported_are_refused(tmp_path, extra, item):
-    args = arg_parser.parse_args(_argv(tmp_path, *extra))
-    with pytest.raises(ValueError, match=f"ROADMAP.md §1 {item}"):
-        VinceSolver(args)
 
 
 @pytest.mark.parametrize("flag", ["--remat", "--pretrained-weights-path",

@@ -10,10 +10,11 @@ Where the port differs:
 - ``--distributed`` starts one process per GPU over ``torch.distributed``
   (``nccl``; ``gloo`` with ``--platform cpu``), from the three explicit flags
   or from ``torchrun``'s environment;
-- ``--native-decode`` decodes the JPEGs on the run's device: nvJPEG and a
-  resize kernel on the GPU (``vince_tpu_torch/native``); with
-  ``--loader-processes`` the solver refuses it, naming the ``ROADMAP.md``
-  item.
+- ``--native-decode`` decodes the JPEGs on the run's device: nvJPEG and the
+  JPEG kernels on the GPU (``vince_tpu_torch/native``); with
+  ``--loader-processes`` each spawned worker decodes so on its own CUDA
+  context, on the rank's GPU (JAX's forked workers each decode with its
+  native decoder).
 
 The end-task solvers (``EndTaskImagenetSolver``, ``EndTaskSunSceneSolver``,
 ``EndTaskKinetics400Solver``, ``EndTaskTrackingSolver``) take the same flags,

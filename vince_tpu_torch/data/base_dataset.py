@@ -33,6 +33,7 @@ class BaseDataset(abc.ABC):
         self.data_subset = data_subset
         size = getattr(args, "input_width", 224)
         self.canvas = canvas_size(size)
+        self._decode_device: Optional[torch.device] = None
 
     def __len__(self) -> int:
         raise NotImplementedError
@@ -77,8 +78,12 @@ class BaseDataset(abc.ABC):
     @property
     def decode_device(self) -> torch.device:
         """The device of ``--native-decode``: the run's (``--platform``), on
-        the rank's GPU under ``--distributed``."""
-        return multihost.local_device(getattr(self.args, "platform", "cuda"))
+        the rank's GPU under ``--distributed``. Looked up once, in the process
+        that made the dataset: ``PersistentDataLoader`` fixes it before its
+        worker processes get their copies, and a worker never looks it up."""
+        if getattr(self, "_decode_device", None) is None:
+            self._decode_device = multihost.local_device(getattr(self.args, "platform", "cuda"))
+        return self._decode_device
 
     def resize_canvas(self, img: np.ndarray) -> np.ndarray:
         c = self.canvas

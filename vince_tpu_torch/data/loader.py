@@ -3,36 +3,110 @@ persistent loader whose workers (threads, or a pool of processes) outlive
 epochs, ``never_ending`` iteration, a bounded queue of ready batches (depth 2),
 and failed reads replaced by other items. Workers only decode and resize uint8
 canvases; augmentation runs on the device.
+
+The worker processes are spawned, each with its copy of the dataset (read
+from a file that this process writes once). Each reseeds the random
+generators that its copy holds (``reseed_generators``), so that no two
+workers repeat a draw, as JAX's forked workers each reseed numpy's global
+generator. Under ``--native-decode`` this process looks the dataset's
+``decode_device`` up before it writes the copy; each worker sets that
+device and decodes on it, and hands back with each batch the decode's
+counters it moved. A worker's exception
+is raised by ``get_batch``, and so is a worker's exit, within
+``WORKER_POLL_S``.
 """
 
 import multiprocessing as mp
+import os
+import pickle
 import queue
+import random
+import tempfile
 import threading
+import time
+import types
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
-# the worker process's dataset and collate function (set by the initializer)
+from vince_tpu_torch import native
+from vince_tpu_torch.data.base_dataset import BaseDataset
+
+# how often a wait for a worker process's batch checks that the workers live
+WORKER_POLL_S = 1.0
+# how long the end of a pool one of whose workers died may take
+KILL_WAIT_S = 10.0
+
+# the worker process's dataset, collate function and the loader's stop event
+# (set by the initializer)
 _WORKER_DATASET = None
 _WORKER_COLLATE = None
+_WORKER_STOP = None
 
 
-def _proc_init(dataset, collate_fn, seed):
-    global _WORKER_DATASET, _WORKER_COLLATE
+def dataset_generators(dataset) -> List[Any]:
+    """The random generators (numpy ``RandomState``s, ``random.Random``s)
+    that ``dataset`` holds as attributes, or its attributes hold (a pair
+    dataset's transform shares the dataset's), each once."""
+    found: Dict[int, Any] = {}
+
+    def visit(obj, depth):
+        for value in vars(obj).values():
+            if isinstance(value, (np.random.RandomState, random.Random)):
+                found.setdefault(id(value), value)
+            elif (depth and hasattr(value, "__dict__")
+                  and not isinstance(value, (type, types.ModuleType))):
+                visit(value, depth - 1)
+
+    visit(dataset, 1)
+    return list(found.values())
+
+
+def reseed_generators(dataset, worker: int):
+    """Reseed each of ``dataset``'s generators in place from its own next
+    draw (so from ``--seed``, which seeded it) and the worker's number: the
+    workers' streams differ, and a generator that two objects share stays
+    shared."""
+    for g in dataset_generators(dataset):
+        if isinstance(g, np.random.RandomState):
+            own = int(g.randint(2 ** 31))
+        else:
+            own = g.getrandbits(31)
+        g.seed(int(np.random.SeedSequence([own, worker]).generate_state(1)[0]))
+
+
+def _proc_init(dataset_file, collate_fn, seed, numbers, stop):
+    global _WORKER_DATASET, _WORKER_COLLATE, _WORKER_STOP
+    import torch
+
     try:
         import cv2
 
         cv2.setNumThreads(0)  # one decode per process; no nested pools
     except ImportError:
         pass
-    _WORKER_DATASET = dataset
-    _WORKER_COLLATE = collate_fn
-    np.random.seed(seed + mp.current_process().pid % 100000)
+    torch.set_num_threads(1)  # the plain resize's, likewise
+    with numbers.get_lock():
+        worker = numbers.value
+        numbers.value += 1
+    with open(dataset_file, "rb") as f:  # written by this loader's process
+        dataset = pickle.load(f)
+    device = getattr(dataset, "_decode_device", None)  # fixed by the parent, never looked up
+    if device is not None and device.type == "cuda":
+        torch.cuda.set_device(device)  # this worker's CUDA context, on the parent's GPU
+    _WORKER_DATASET, _WORKER_COLLATE, _WORKER_STOP = dataset, collate_fn, stop
+    np.random.seed(int(np.random.SeedSequence([seed, worker]).generate_state(1)[0]))
+    reseed_generators(dataset, worker)
 
 
 def _proc_load(indices):
+    """A batch of ``indices`` (None if every read failed, or once the loader
+    stops) and the decode's counters that it moved in this worker."""
+    before = native.decode_counters()
     items = []
     for i in indices:
+        if _WORKER_STOP.is_set():  # shutting down: the batch would not be taken
+            return None, native.counters_since(before)
         item = _WORKER_DATASET[i]
         tries = 0
         while item is None and tries < 10:
@@ -40,11 +114,26 @@ def _proc_load(indices):
             tries += 1
         if item is not None:
             items.append(item)
-    if not items:
-        return None
-    while len(items) < len(indices):
-        items.append(items[len(items) % max(len(items), 1)])
-    return _WORKER_COLLATE(items)
+    batch = None
+    if items:
+        while len(items) < len(indices):
+            items.append(items[len(items) % max(len(items), 1)])
+        batch = _WORKER_COLLATE(items)
+    return batch, native.counters_since(before)
+
+
+def _end_pool(pool, workers):
+    """End a pool one of whose workers died. Its lost job would hold
+    ``close`` and ``join`` for good, and ``terminate`` can block on what the
+    dead worker held (the task queue's lock, a half-sent batch): it runs on a
+    daemon thread for at most ``KILL_WAIT_S``, then every worker left is
+    killed."""
+    ender = threading.Thread(target=pool.terminate, daemon=True)
+    ender.start()
+    ender.join(KILL_WAIT_S)
+    for p in list(workers) + list(pool._pool):
+        if p.is_alive():
+            p.kill()
 
 
 def collate_video_batch(items: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
@@ -100,6 +189,9 @@ class PersistentDataLoader:
         self.shard_id = shard_id
         self.use_processes = use_processes
         self._pool = None
+        self._stopping = None  # the pool's stop event
+        self._dataset_file = None  # the dataset, pickled for the pool's workers
+        self._workers: List = []
         self._pending: List = []
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
@@ -130,11 +222,29 @@ class PersistentDataLoader:
             # spawn: this process has threads (and may have CUDA), which a
             # forked child would inherit in whatever state they were
             ctx = mp.get_context("spawn")
+            self._stopping = ctx.Event()
+            # the dataset goes to the workers in a file that each reads: sent
+            # with a worker's start, a pickle beyond the pipe's 64 KiB holds
+            # this process until the child has imported its modules, and the
+            # pool starts its workers one after another (60 s for 8 workers
+            # and 2000 ImageNet samples on the card's host)
+            if isinstance(dataset, BaseDataset) and native.wanted(dataset.args):
+                dataset.decode_device  # looked up here, so that the workers' copies carry it
+            fd, self._dataset_file = tempfile.mkstemp(prefix="vince_loader_", suffix=".pkl")
+            try:
+                with os.fdopen(fd, "wb") as f:
+                    pickle.dump(dataset, f, protocol=pickle.HIGHEST_PROTOCOL)
+            except BaseException:
+                os.unlink(self._dataset_file)
+                raise
             self._pool = ctx.Pool(
                 self.num_workers,
                 initializer=_proc_init,
-                initargs=(dataset, self.collate_fn, self.seed),
+                initargs=(self._dataset_file, self.collate_fn, self.seed, ctx.Value("i", 0),
+                          self._stopping),
             )
+            # the processes the pool started: one that exits before shutdown died
+            self._workers = list(self._pool._pool)
             self._pending = []
             self._fill_pending()
             return
@@ -237,6 +347,29 @@ class PersistentDataLoader:
                 items.append(items[len(items) % max(len(items), 1)])
             self._put(self.collate_fn(items))
 
+    def _dead_workers(self) -> List:
+        return [p for p in self._workers if p.exitcode is not None]
+
+    def _result(self, job, timeout: Optional[float]):
+        """``job``'s result, waited for in steps of ``WORKER_POLL_S`` that
+        check the workers: ``mp.TimeoutError`` after ``timeout``, a
+        RuntimeError for a worker's exception or a worker that exited."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            left = WORKER_POLL_S if deadline is None else deadline - time.monotonic()
+            try:
+                return job.get(timeout=max(min(left, WORKER_POLL_S), 0.0))
+            except mp.TimeoutError:
+                dead = self._dead_workers()
+                if dead:
+                    raise RuntimeError(
+                        f"a loader worker process exited (pid {dead[0].pid}, exit code "
+                        f"{dead[0].exitcode}) before its batch was done") from None
+                if deadline is not None and time.monotonic() >= deadline:
+                    raise
+            except Exception as exc:  # raised in the worker, handed on
+                raise RuntimeError("a loader worker process failed") from exc
+
     def get_batch(self, timeout: Optional[float] = None):
         if self.use_processes:
             while True:
@@ -244,9 +377,9 @@ class PersistentDataLoader:
                     # end of data (never_ending=False), as the threads' None
                     return None
                 # peek, then pop: a get that times out keeps its job
-                job = self._pending[0]
-                batch = job.get(timeout=timeout)
+                batch, moved = self._result(self._pending[0], timeout)
                 self._pending.pop(0)
+                native.add_counters(moved)
                 self._fill_pending()
                 if batch is None:
                     continue
@@ -271,13 +404,23 @@ class PersistentDataLoader:
 
     def shutdown(self):
         if self._pool is not None:
-            # close, then join: the jobs in flight end and their workers exit.
-            # terminate() can hang for good: the pool's result thread may be
-            # reading a batch that a killed worker had half sent
-            self._pool.close()
-            self._pool.join()
-            self._pool = None
-            self._pending = []
+            pool, self._pool = self._pool, None
+            if self._dead_workers():
+                _end_pool(pool, self._workers)
+            else:
+                # stop, close, then join: the jobs in flight end at their next
+                # item and their workers exit. terminate() can hang for good:
+                # the pool's result thread may be reading a batch that a killed
+                # worker had half sent. The counters of the batches not taken
+                # are kept.
+                self._stopping.set()
+                pool.close()
+                pool.join()
+                for job in self._pending:
+                    if job.ready() and job.successful():
+                        native.add_counters(job.get()[1])
+            os.unlink(self._dataset_file)
+            self._pending, self._workers = [], []
         if self._threads:
             self._stop.set()
             for t in self._threads:

@@ -23,14 +23,17 @@ the card, and raises.
 nvJPEG's decode state is not thread-safe: each host thread that decodes gets
 its own decoder (two decode states and a CUDA stream of its own), so the
 loader's threads decode side by side. ``DecodePool`` holds one decoder and
-decodes a batch in one call.
+decodes a batch in one call. Under ``--loader-processes`` each worker
+process decodes for itself, on its own CUDA context on the device that the
+parent fixed; the counters it moves (``decode_counters``) travel back with
+each batch and are added to the parent's (``add_counters``).
 """
 
 import ctypes
 import functools
 import os
 import threading
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,10 +42,14 @@ from vince_tpu_torch.device import resolve_device
 from vince_tpu_torch.ops.kernels import build
 from vince_tpu_torch.ops.kernels.jpeg_kernels import resize_canvas, ycc_to_rgb
 
-# decodes by path ("nvjpeg": on the card, "plain": the CPU's plain version),
-# the streams refused, and the reads that took cv2 instead (reset by
+# the files handed to the decode (decode_jpeg_files, DecodePool.decode_files),
+# the decodes by path ("nvjpeg": on the card, "plain": the CPU's plain
+# version), the streams refused, and the reads that took cv2 instead (reset by
 # reset_counts)
-counts = {"nvjpeg": 0, "plain": 0, "failed": 0, "cv2_reads": 0}
+counts = {"files": 0, "nvjpeg": 0, "plain": 0, "failed": 0, "cv2_reads": 0}
+# the kernels of the card's decode, whose wrappers count their launches and
+# plain calls
+_KERNELS = {"ycc_to_rgb": ycc_to_rgb, "resize_canvas": resize_canvas}
 _NVJPEG_ERROR = 1000  # jpeg_decode.cu returns 1000 + an nvjpegStatus_t
 _REFUSED = -1  # jpeg_decode.cu: nvJPEG rejected the stream itself
 _counts_lock = threading.Lock()
@@ -62,6 +69,35 @@ def reset_counts():
     with _counts_lock:
         for key in counts:
             counts[key] = 0
+
+
+def decode_counters() -> Dict[str, int]:
+    """Every counter that the decode moves in this process: ``counts``, and
+    the launches and plain calls of its kernels' wrappers
+    (``"ycc_to_rgb.launches"``, ...)."""
+    with _counts_lock:
+        out = dict(counts)
+    for name, wrapper in _KERNELS.items():
+        out[f"{name}.launches"] = wrapper.launches
+        out[f"{name}.plain_calls"] = wrapper.plain_calls
+    return out
+
+
+def counters_since(before: Dict[str, int]) -> Dict[str, int]:
+    """What ``decode_counters`` moved since ``before``: the counters that a
+    loader's worker process hands back with a batch."""
+    return {k: v - before[k] for k, v in decode_counters().items() if v != before[k]}
+
+
+def add_counters(moved: Dict[str, int]):
+    """Add a worker process's ``counters_since`` to this process's counters."""
+    with _counts_lock:
+        for key, n in moved.items():
+            name, _, attr = key.partition(".")
+            if attr:
+                setattr(_KERNELS[name], attr, getattr(_KERNELS[name], attr) + n)
+            else:
+                counts[key] += n
 
 
 def wanted(args) -> bool:
@@ -348,8 +384,11 @@ def decode_jpeg_file(path: str, canvas: int, device="cuda") -> Optional[np.ndarr
 
 def decode_jpeg_files(paths: Sequence[str], canvas: int, device="cuda"
                       ) -> Tuple[np.ndarray, np.ndarray]:
-    """``decode_jpegs`` of the files' bytes (a file that cannot be read is not ok)."""
-    return decode_jpegs([_read(p) for p in paths], canvas, device)
+    """``decode_jpegs`` of the files' bytes (a file that cannot be read is not
+    ok), counted in ``counts["files"]`` once decoded."""
+    out = decode_jpegs([_read(p) for p in paths], canvas, device)
+    count("files", len(paths))
+    return out
 
 
 class DecodePool:
@@ -375,4 +414,6 @@ class DecodePool:
 
     def decode_files(self, paths: List[str], canvas: int) -> Tuple[np.ndarray, np.ndarray]:
         """[n] file paths → ([n, canvas, canvas, 3] uint8, [n] ok mask)."""
-        return self.decode([_read(p) for p in paths], canvas)
+        out = self.decode([_read(p) for p in paths], canvas)
+        count("files", len(paths))
+        return out

@@ -62,8 +62,7 @@ from vince_tpu_torch.solvers.end_task_step import (
     init_end_task_state,
     make_end_task_train_step,
 )
-from vince_tpu_torch.solvers.vince_solver import (
-    metrics_to_host, open_native_decode, refused_flags)
+from vince_tpu_torch.solvers.vince_solver import metrics_to_host, open_native_decode
 from vince_tpu_torch.utils.checkpoint import (
     CheckpointManager,
     end_task_state_tree,
@@ -96,9 +95,6 @@ class EndTaskBaseSolver(BaseSolver):
     default_transform = "BasicImagenetTransform"
 
     def __init__(self, args, train_logger=None, val_logger=None):
-        refused = refused_flags(args)
-        if refused:
-            raise ValueError("not ported yet: " + "; ".join(refused))
         platform = getattr(args, "platform", "cuda")
         self.device = (multihost.local_device(platform) if dist.is_initialized()
                        else resolve_device(platform))

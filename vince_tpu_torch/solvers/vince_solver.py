@@ -72,20 +72,11 @@ from vince_tpu_torch.utils.torch_convert import (
 PROFILE_STEPS = (5, 8)  # the global steps a --profile-dir trace starts and stops at
 
 
-def refused_flags(args) -> List[str]:
-    """What the flags ask for that the port does not have yet, each with the
-    ``ROADMAP.md`` item that ports it."""
-    out = []
-    if native.wanted(args) and getattr(args, "loader_processes", False):
-        # each worker process would open a CUDA context and nvJPEG handles of its own
-        out.append("--native-decode with --loader-processes (ROADMAP.md §1 item 6a)")
-    return out
-
-
 def open_native_decode(args, device: torch.device):
     """With ``--native-decode``, build and load the decode for ``device``
-    before any loader thread starts, so that a build failure raises in the
-    solver's own thread."""
+    before any loader thread or worker process starts, so that a build
+    failure raises in the solver's own thread and a worker process only loads
+    the library."""
     if native.wanted(args) and not native.available(device):
         raise RuntimeError(f"--native-decode: the decode does not run on {device}")
 
@@ -116,9 +107,6 @@ def metrics_to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
 
 class VinceSolver(BaseSolver):
     def __init__(self, args, train_logger=None, val_logger=None):
-        refused = refused_flags(args)
-        if refused:
-            raise ValueError("not ported yet: " + "; ".join(refused))
         platform = getattr(args, "platform", "cuda")
         self.device = (multihost.local_device(platform) if dist.is_initialized()
                        else resolve_device(platform))
