@@ -2,13 +2,16 @@
 ``vince_tpu/native/__init__.py``), behind ``--native-decode``.
 
 On a CUDA device the decode runs on the card: nvJPEG's default backend
-decodes at full size into YCbCr planes in a device buffer; the
-hand-written kernels of ``ops/kernels/jpeg_kernels.py`` upsample the chroma
-and convert to RGB as libjpeg (and so cv2) does, then resize to the canvas
-with ``vince_tpu/native/decode.cc``'s formula; one copy brings the canvases
-to pinned host memory, so that the datasets keep handing numpy arrays. A
-build or launch failure raises: nothing decodes on the host because the card
-failed. On the CPU the entry points run the plain version: ``cv2.imdecode``
+decodes at full size into YCbCr planes in a device buffer; one launch of the
+hand-written kernel ``ycc_resize_canvas`` (``ops/kernels/jpeg_kernels.py``)
+upsamples the chroma and converts to RGB as libjpeg (and so cv2) does and
+resizes to the canvas with ``vince_tpu/native/decode.cc``'s formula, the RGB
+image kept in the kernel's shared memory; its meta reaches the card by one
+non-blocking copy from pinned memory on the decoder's stream, and one copy
+brings the canvases to pinned host memory, so that the datasets keep handing
+numpy arrays. The host waits once per call, at the stream's synchronise
+after that copy. A build or launch failure raises: nothing decodes on the
+host because the card failed. On the CPU the entry points run the plain version: ``cv2.imdecode``
 at full size, then the resize's plain PyTorch version.
 
 A stream either path does not take (not a JPEG whose segments and scans run
@@ -40,16 +43,19 @@ import torch
 
 from vince_tpu_torch.device import resolve_device
 from vince_tpu_torch.ops.kernels import build
-from vince_tpu_torch.ops.kernels.jpeg_kernels import resize_canvas, ycc_to_rgb
+from vince_tpu_torch.ops.kernels.jpeg_kernels import (
+    resize_canvas, ycc_resize_canvas, ycc_to_rgb)
 
 # the files handed to the decode (decode_jpeg_files, DecodePool.decode_files),
 # the decodes by path ("nvjpeg": on the card, "plain": the CPU's plain
 # version), the streams refused, and the reads that took cv2 instead (reset by
 # reset_counts)
 counts = {"files": 0, "nvjpeg": 0, "plain": 0, "failed": 0, "cv2_reads": 0}
-# the kernels of the card's decode, whose wrappers count their launches and
-# plain calls
-_KERNELS = {"ycc_to_rgb": ycc_to_rgb, "resize_canvas": resize_canvas}
+# the JPEG kernels, whose wrappers count their launches and plain calls: the
+# card's decode launches ycc_resize_canvas, the CPU's runs resize_canvas's
+# plain version, and ycc_to_rgb is on no path
+_KERNELS = {"ycc_resize_canvas": ycc_resize_canvas, "ycc_to_rgb": ycc_to_rgb,
+            "resize_canvas": resize_canvas}
 _NVJPEG_ERROR = 1000  # jpeg_decode.cu returns 1000 + an nvjpegStatus_t
 _REFUSED = -1  # jpeg_decode.cu: nvJPEG rejected the stream itself
 _counts_lock = threading.Lock()
@@ -74,7 +80,7 @@ def reset_counts():
 def decode_counters() -> Dict[str, int]:
     """Every counter that the decode moves in this process: ``counts``, and
     the launches and plain calls of its kernels' wrappers
-    (``"ycc_to_rgb.launches"``, ...)."""
+    (``"ycc_resize_canvas.launches"``, ...)."""
     with _counts_lock:
         out = dict(counts)
     for name, wrapper in _KERNELS.items():
@@ -245,24 +251,22 @@ class _CardDecoder:
 
     def decode_planes(self, items: Sequence[bytes]):
         """nvJPEG's decode on the card, on this decoder's stream (the caller
-        synchronises it): (the planes' buffer, ``ycc_to_rgb``'s meta [m, 8] on
-        the device, the RGB buffer's bytes, the largest image's pixels,
-        ``resize_canvas``'s meta [m, 3] on the device, the indices of
-        ``items`` decoded); the metas are None where none was."""
+        synchronises it): (the planes' buffer, ``ycc_resize_canvas``'s meta
+        [m, 7] on the device, its pinned host copy, which the caller keeps
+        until the stream's synchronise, the indices of ``items`` decoded);
+        the metas are None where none was."""
         infos = [(i, self._info(data)) for i, data in enumerate(items)]
         infos = [(i, info) for i, info in infos if info is not None]
         count("failed", len(items) - len(infos))
-        plane_at, rgb_at, planes_total, rgb_total = [], [], 0, 0
+        plane_at, planes_total = [], 0
         for _, (components, _, w, h, cw, ch, _, _) in infos:
             plane_at.append(planes_total)
-            rgb_at.append(rgb_total)
             planes_total += _aligned(h * w + (2 * ch * cw if components == 3 else 0))
-            rgb_total += _aligned(3 * h * w)
         m = len(infos)
         with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
             planes = torch.empty(max(planes_total, 1), dtype=torch.uint8, device=self.device)
             if not m:
-                return planes, None, 0, 0, None, []
+                return planes, None, None, []
             base = planes.data_ptr()
             decoded = (ctypes.c_int * m)()
             status = self._lib.vince_jpeg_decode(
@@ -276,27 +280,26 @@ class _CardDecoder:
             count("nvjpeg", len(done))
             count("failed", m - len(done))
             if not done:
-                return planes, None, 0, 0, None, []
-            # (planes' offset, h, w, cw, ch, hs, vs, RGB offset) from (c, css, w, h, cw, ch, hs, vs)
-            ycc_meta = torch.tensor([[plane_at[j], infos[j][1][3], infos[j][1][2],
-                                      *infos[j][1][4:8], rgb_at[j]] for j in done],
-                                    dtype=torch.int64)
-            resize_meta = ycc_meta[:, [7, 1, 2]].contiguous()
-            ycc_meta, resize_meta = ycc_meta.to(self.device), resize_meta.to(self.device)
-        pixels = max(infos[j][1][2] * infos[j][1][3] for j in done)
-        return planes, ycc_meta, rgb_total, pixels, resize_meta, [infos[j][0] for j in done]
+                return planes, None, None, []
+            # (planes' offset, h, w, cw, ch, hs, vs) from (c, css, w, h, cw, ch, hs, vs)
+            host_meta = torch.tensor([[plane_at[j], infos[j][1][3], infos[j][1][2],
+                                       *infos[j][1][4:8]] for j in done],
+                                     dtype=torch.int64).pin_memory()
+            meta = host_meta.to(self.device, non_blocking=True)
+        return planes, meta, host_meta, [infos[j][0] for j in done]
 
     def decode(self, items: Sequence[bytes], canvas: int) -> Tuple[np.ndarray, np.ndarray]:
         n = len(items)
         ok = np.zeros(n, bool)
         with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
-            planes, ycc_meta, rgb_total, pixels, meta, rows = self.decode_planes(items)
+            planes, meta, host_meta, rows = self.decode_planes(items)
             if not rows:
                 return np.zeros((n, canvas, canvas, 3), np.uint8), ok
-            canvases = resize_canvas(ycc_to_rgb(planes, ycc_meta, rgb_total, pixels), meta, canvas)
+            canvases = ycc_resize_canvas(planes, meta, canvas)
             host = torch.empty(canvases.shape, dtype=torch.uint8, pin_memory=True)
             host.copy_(canvases, non_blocking=True)
-            self.stream.synchronize()
+            self.stream.synchronize()  # the meta's copy has ended: host_meta may go
+        del host_meta
         ok[rows] = True
         if len(rows) == n:
             return host.numpy(), ok

@@ -1,9 +1,13 @@
-"""The JPEG path's two kernels (``csrc/jpeg_decode.cu``), each beside its plain
-PyTorch version: ``ycc_to_rgb`` (libjpeg's chroma upsampling and YCbCr → RGB
-conversion of the planes nvJPEG decodes) and ``resize_canvas`` (the bilinear
-resize to the square uint8 canvas).
+"""The JPEG path's kernels (``csrc/jpeg_decode.cu``), each beside its plain
+PyTorch version: ``ycc_resize_canvas``, the path's one kernel, from the YCbCr
+planes nvJPEG decodes straight to the square uint8 canvas; and the two it
+replaced, kept as stand-alone ops off every path: ``ycc_to_rgb`` (libjpeg's
+chroma upsampling and YCbCr → RGB conversion) and ``resize_canvas`` (the
+bilinear resize to the canvas), whose plain versions compose the fused
+one's. The CPU's decode (``cv2``, then ``resize_canvas``'s plain version)
+also runs here.
 
-Neither replaces a TPU kernel: they are the counterparts of what the JAX
+None replaces a TPU kernel: they are the counterparts of what the JAX
 package runs on the host after libjpeg's decode, in libjpeg itself (the
 upsampling and colour conversion of ``jdsample.c`` and ``jdcolor.c``, as
 ``cv2`` and ``vince_tpu/native/decode.cc`` both get them) and in
@@ -24,6 +28,8 @@ from vince_tpu_torch.ops.kernels import build, check_tensor, use_kernel
 # width, chroma height, horizontal and vertical subsampling (0, 0: grayscale),
 # the RGB image's byte offset in the output
 YCC_META = 8
+# columns of ycc_resize_canvas's meta: YCC_META's first seven
+FUSED_META = 7
 
 
 def _replicate(plane: torch.Tensor, dim: int, step: int) -> torch.Tensor:
@@ -81,16 +87,21 @@ def ycc_to_rgb_image_plain(y: torch.Tensor, cb=None, cr=None, hs: int = 0,
     return torch.stack([r, g, b], -1).clamp(0, 255).to(torch.uint8)
 
 
+def _planes(src: torch.Tensor, offset: int, h: int, w: int, cw: int, ch: int, hs: int):
+    """One frame's planes in ``src``: Y [h, w] and, unless grayscale, Cb and
+    Cr [ch, cw]."""
+    y = src[offset:offset + h * w].view(h, w)
+    if not hs:
+        return (y,)
+    c0 = offset + h * w
+    return y, src[c0:c0 + ch * cw].view(ch, cw), src[c0 + ch * cw:c0 + 2 * ch * cw].view(ch, cw)
+
+
 def _reference_ycc_to_rgb(src, meta, total):
     out = torch.zeros(total, dtype=torch.uint8, device=src.device)
     for offset, h, w, cw, ch, hs, vs, rgb in meta.tolist():
-        y = src[offset:offset + h * w].view(h, w)
-        planes = ()
-        if hs:
-            c0 = offset + h * w
-            planes = (src[c0:c0 + ch * cw].view(ch, cw),
-                      src[c0 + ch * cw:c0 + 2 * ch * cw].view(ch, cw))
-        out[rgb:rgb + h * w * 3] = ycc_to_rgb_image_plain(y, *planes, hs=hs, vs=vs).reshape(-1)
+        image = ycc_to_rgb_image_plain(*_planes(src, offset, h, w, cw, ch, hs), hs=hs, vs=vs)
+        out[rgb:rgb + h * w * 3] = image.reshape(-1)
     return out
 
 
@@ -191,6 +202,47 @@ def resize_canvas(src: torch.Tensor, meta: torch.Tensor, canvas: int) -> torch.T
     return out
 
 
-for _wrapper in (ycc_to_rgb, resize_canvas):
+def _reference_ycc_resize(src: torch.Tensor, meta: torch.Tensor, canvas: int) -> torch.Tensor:
+    """The fused kernel's plain version: each frame through
+    ``ycc_to_rgb_image_plain``, then ``resize_image_plain``."""
+    out = []
+    for offset, h, w, cw, ch, hs, vs in meta.tolist():
+        rgb = ycc_to_rgb_image_plain(*_planes(src, offset, h, w, cw, ch, hs), hs=hs, vs=vs)
+        out.append(resize_image_plain(rgb, canvas))
+    return torch.stack(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_entry():
+    fn = build.load("jpeg_decode").vince_ycc_resize_canvas
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ycc_resize_canvas(src: torch.Tensor, meta: torch.Tensor, canvas: int) -> torch.Tensor:
+    """[n, canvas, canvas, 3] uint8 from the YCbCr planes packed in ``src``
+    (``meta`` [n, 7] int64, ``FUSED_META``'s columns): the fused kernel on a
+    CUDA tensor, the plain version (``resize_canvas(ycc_to_rgb(...))`` frame
+    by frame) on the CPU."""
+    if meta.dim() != 2 or meta.shape[1] != FUSED_META or not 0 < meta.shape[0] <= 65535 \
+            or canvas <= 0:
+        raise ValueError(f"unsupported meta {tuple(meta.shape)} or canvas {canvas}")
+    if not use_kernel(src):
+        ycc_resize_canvas.plain_calls += 1
+        return _reference_ycc_resize(src, meta, canvas)
+    check_tensor(src, "src", torch.uint8, 1, src.device)
+    check_tensor(meta, "meta", torch.int64, 2, src.device)
+    n = meta.shape[0]
+    out = torch.empty(n, canvas, canvas, 3, dtype=torch.uint8, device=src.device)
+    status = _fused_entry()(src.data_ptr(), meta.data_ptr(), n, canvas, out.data_ptr(),
+                            torch.cuda.current_stream(src.device).cuda_stream)
+    build.check(status, "ycc_resize_canvas")
+    ycc_resize_canvas.launches += 1
+    return out
+
+
+for _wrapper in (ycc_resize_canvas, ycc_to_rgb, resize_canvas):
     _wrapper.launches = 0
     _wrapper.plain_calls = 0
