@@ -5,6 +5,7 @@ exits 1. Beside it: the prefill's draws per call, the jigsaw warm-up's
 both-sides step, the remat and reference-weight flags, the multi-GPU flags on one process, and the end-task solvers it
 builds."""
 
+import json
 import os
 
 import numpy as np
@@ -262,11 +263,26 @@ def test_end_task_solvers_and_a_missing_gpu_are_refused(tmp_path):
 
 
 def test_profile_dir_traces_global_steps_5_to_8(tmp_path):
+    """The trace of steps 5-8 holds the port's spans (tracing on from the
+    solver's start); the tracing records beside it hold set-up's and every
+    iteration's; tracing is off once they are written."""
+    from vince_tpu_torch.utils import tracing
+
     solver = solver_runner.main(_argv(tmp_path, "--epochs", "1", "--iterations-per-epoch", "9",
                                       "--no-save", "--profile-dir", str(tmp_path / "trace")))
     assert solver._trace_done and solver._profiler is None
-    assert os.listdir(tmp_path / "trace") == ["trace_steps_5-8.json"]
+    assert sorted(os.listdir(tmp_path / "trace")) == ["trace_steps_5-8.json",
+                                                      "vince_records.json"]
     assert os.path.getsize(tmp_path / "trace" / "trace_steps_5-8.json") > 1000
+    with open(tmp_path / "trace" / "trace_steps_5-8.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"vince.iter.data_wait", "vince.iter.step", "vince.iter.metrics",
+            "vince.iter.log_save", "vince.step.draws", "vince.step.body"} <= names
+    with open(tmp_path / "trace" / "vince_records.json") as f:
+        spans = json.load(f)["spans"]
+    assert len(spans["vince.iter.step"]) == 8  # the records are written before step 8
+    assert len(spans["vince.setup.init_state"]) == 1
+    assert not tracing.enabled() and tracing.records()["spans"] == {}
 
 
 def test_image_panels_are_logged_where_tensorboard_writes(tmp_path, monkeypatch):

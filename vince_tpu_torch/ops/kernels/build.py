@@ -7,7 +7,9 @@ A library is built at first use into ``vince_tpu_torch/_build`` (listed in
 loaded as it is. ``build_all`` starts one ``nvcc`` per
 source at once and waits for all of them. A source that needs a library of
 the CUDA toolkit beyond the runtime (``jpeg_decode.cu``: nvJPEG) names it in
-``LINK_FLAGS``.
+``LINK_FLAGS``. With tracing on (``utils/tracing.py``), a first ``load`` of a
+name is the span ``vince.kernels.load``, and each source ``nvcc`` compiled is
+counted under ``kernels_built`` with its seconds.
 """
 
 import ctypes
@@ -18,6 +20,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+from vince_tpu_torch.utils import tracing
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -75,6 +79,7 @@ def build_all(names: Iterable[str], verbose: bool = False) -> Dict[str, float]:
         if verbose and log:
             print(log)
         os.replace(tmp, target)
+        tracing.count("kernels_built", (name, times[name]))
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return times
@@ -83,8 +88,9 @@ def build_all(names: Iterable[str], verbose: bool = False) -> Dict[str, float]:
 def load(name: str) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu``, building it if needed."""
     if name not in _LIBS:
-        build_all([name])
-        _LIBS[name] = ctypes.CDLL(str(_target(name)))
+        with tracing.span("vince.kernels.load"):
+            build_all([name])
+            _LIBS[name] = ctypes.CDLL(str(_target(name)))
     return _LIBS[name]
 
 

@@ -33,6 +33,7 @@ kNN probe run with one process only, as in JAX, and the checkpoint is the
 primary's.
 """
 
+import json
 import os
 import time
 from typing import Dict, List, Optional, Tuple
@@ -64,12 +65,14 @@ from vince_tpu_torch.solvers.vince_step import (
     make_train_step,
     make_train_step_fn,
 )
+from vince_tpu_torch.utils import tracing
 from vince_tpu_torch.utils.checkpoint import CheckpointManager
 from vince_tpu_torch.utils.meters import AverageMeter, Stopwatch
 from vince_tpu_torch.utils.torch_convert import (
     convert_vince_state_dict, init_from_reference, load_torch_checkpoint)
 
 PROFILE_STEPS = (5, 8)  # the global steps a --profile-dir trace starts and stops at
+RECORDS_FILE = "vince_records.json"  # the tracing records, beside the trace
 
 
 def open_native_decode(args, device: torch.device):
@@ -99,9 +102,11 @@ def mesh_shape(args, world: int) -> Tuple[int, int]:
 
 
 def metrics_to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
-    """0-dim device metrics → host floats in one device-to-host copy."""
+    """0-dim device metrics → host floats in one device-to-host copy, which
+    waits for the step; then the step's timed regions are read."""
     keys = list(metrics)
     values = torch.stack([metrics[k].detach().float() for k in keys]).cpu().tolist()
+    tracing.read_regions()
     return dict(zip(keys, values))
 
 
@@ -125,7 +130,17 @@ class VinceSolver(BaseSolver):
         self._profiler = None
         self._trace_done = False
         self._queue_restored = False
-        super().__init__(args, train_logger, val_logger)
+        # --profile-dir: the port's spans and regions from the start (set-up,
+        # the capture) until the trace is written (``_stop_profile``)
+        self._tracing = bool(getattr(args, "profile_dir", "")) and multihost.is_primary()
+        if self._tracing:
+            tracing.reset()
+            tracing.enable()
+        try:
+            super().__init__(args, train_logger, val_logger)
+        except BaseException:
+            self._stop_tracing()
+            raise
 
     @property
     def model_name(self):
@@ -476,7 +491,9 @@ class VinceSolver(BaseSolver):
 
     def _profile(self):
         """With ``--profile-dir``, a torch.profiler trace from global step 5 to
-        8, written as a Chrome trace into the directory."""
+        8, written as a Chrome trace into the directory, and the port's
+        tracing records since the solver's start (``utils/tracing.py``) beside
+        it."""
         profile_dir = getattr(self.args, "profile_dir", "")
         if not profile_dir or self._trace_done or not multihost.is_primary():
             return
@@ -498,6 +515,17 @@ class VinceSolver(BaseSolver):
         profiler.export_chrome_trace(path)
         self._trace_done = True
         print(f"profiler trace written to {path}")
+        records = os.path.join(self.args.profile_dir, RECORDS_FILE)
+        with open(records, "w") as f:
+            json.dump(tracing.records(), f)
+        self._stop_tracing()
+        print(f"tracing records written to {records}")
+
+    def _stop_tracing(self):
+        if self._tracing:
+            self._tracing = False
+            tracing.disable()
+            tracing.reset()
 
     def select_step(self):
         """The step of this iteration: with the jigsaw, the both-sides step
@@ -517,36 +545,39 @@ class VinceSolver(BaseSolver):
         self._profile()
         watch = Stopwatch().start()
         # with the prefetch thread on, the wait for its next staged batch
-        device_batch, host_batches = self.get_batch()
+        with tracing.span("vince.iter.data_wait"):
+            device_batch, host_batches = self.get_batch()
         self.time_meters["data_cache_time"].update(watch.lap())
 
-        step_fn = self.select_step()
-        _, metrics = step_fn(self.state, device_batch, self.seed)
-        # the iteration's one wait on the device: this lap times the step
-        metrics = metrics_to_host(metrics)
+        with tracing.span("vince.iter.step"):
+            step_fn = self.select_step()
+            _, metrics = step_fn(self.state, device_batch, self.seed)
+            # the iteration's one wait on the device: this lap times the step
+            metrics = metrics_to_host(metrics)
         self.time_meters["step_time"].update(watch.lap())
 
-        self.log_step_metrics(metrics)
+        with tracing.span("vince.iter.metrics"):
+            self.log_step_metrics(metrics)
         self.time_meters["metrics_time"].update(watch.lap())
+        with tracing.span("vince.iter.log_save"):
+            # the thumbnail ring and the panels with one process only: a rank sees
+            # its rows of the batch, and the panel's forward is a collective no
+            # rank may run alone
+            if not multihost.is_multiprocess():
+                thumbs, names = self._host_thumbs(host_batches)
+                for t, nm in zip(thumbs, names):
+                    self.image_ring.enqueue([t], nm)
+                # panels only where the logger writes images (tensorboardX imports)
+                if (self.train_logger is not None and self.train_logger.writer is not None
+                        and self.logger_iteration > 0
+                        and self.logger_iteration % self.args.image_log_frequency == 0):
+                    self.log_images(host_batches)
 
-        # the thumbnail ring and the panels with one process only: a rank sees
-        # its rows of the batch, and the panel's forward is a collective no
-        # rank may run alone
-        if not multihost.is_multiprocess():
-            thumbs, names = self._host_thumbs(host_batches)
-            for t, nm in zip(thumbs, names):
-                self.image_ring.enqueue([t], nm)
-            # panels only where the logger writes images (tensorboardX imports)
-            if (self.train_logger is not None and self.train_logger.writer is not None
-                    and self.logger_iteration > 0
-                    and self.logger_iteration % self.args.image_log_frequency == 0):
-                self.log_images(host_batches)
-
-        self.iteration += self.args.batch_size
-        self.logger_iteration += 1
-        # on the global step, which no epoch resets
-        if self.args.save and self.global_step % self.args.save_frequency == 0:
-            self.save(num_to_keep=5)
+            self.iteration += self.args.batch_size
+            self.logger_iteration += 1
+            # on the global step, which no epoch resets
+            if self.args.save and self.global_step % self.args.save_frequency == 0:
+                self.save(num_to_keep=5)
         self.time_meters["log_save_time"].update(watch.lap())
         self.time_meters["total_time"].update(watch.total())
         return metrics
@@ -670,6 +701,7 @@ class VinceSolver(BaseSolver):
         self.stop_prefetch()
         if self._profiler is not None:
             self._stop_profile()
+        self._stop_tracing()
         for _, loader in self.train_loaders + self.val_loaders:
             loader.shutdown()
         self.ckpt.close()

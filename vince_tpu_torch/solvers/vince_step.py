@@ -75,6 +75,7 @@ from vince_tpu_torch.parallel.collectives import (
     cross_device_shuffle, cross_device_shuffle_a2a, cross_device_unshuffle, flat_all_reduce_,
     gather_global_batch, make_balanced_shuffle_perm, make_shuffle_perm, pmean)
 from vince_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, bind
+from vince_tpu_torch.utils import tracing
 from vince_tpu_torch.utils.transforms import make_config
 
 
@@ -333,18 +334,23 @@ def init_vince_state(seed: int, cfg: VinceConfig, optimizer: OptimizerSpec,
     """Random weights and queue from ``seed``; on the GPU unless ``device`` says
     otherwise. On a mesh every rank makes the same weights and the same
     global queue, and keeps its queue shard."""
-    device = resolve_device(device)
-    _check_mesh(cfg, mesh)
-    full_f32_products()
-    gen = torch.Generator().manual_seed(seed)
-    model = build_encoder(cfg)
-    model.reset_parameters(gen)
-    model.to(device).train()
-    key_model = copy.deepcopy(model).requires_grad_(False)
-    queue = init_queue(gen, cfg.queue_size, cfg.embed_size, device=device,
-                       shard_index=_place(mesh).queue_index, num_shards=cfg.queue_axis_size)
-    return VinceState(step=0, model=model, key_model=key_model,
-                      optimizer=optimizer.make(model.parameters()), queue=queue)
+    with tracing.span("vince.setup.init_state"):
+        device = resolve_device(device)
+        _check_mesh(cfg, mesh)
+        full_f32_products()
+        gen = torch.Generator().manual_seed(seed)
+        with tracing.span("vince.setup.init_weights"):
+            model = build_encoder(cfg)
+            model.reset_parameters(gen)
+        with tracing.span("vince.setup.to_device"):
+            model.to(device).train()
+            key_model = copy.deepcopy(model).requires_grad_(False)
+        with tracing.span("vince.setup.init_queue"):
+            queue = init_queue(gen, cfg.queue_size, cfg.embed_size, device=device,
+                               shard_index=_place(mesh).queue_index,
+                               num_shards=cfg.queue_axis_size)
+        return VinceState(step=0, model=model, key_model=key_model,
+                          optimizer=optimizer.make(model.parameters()), queue=queue)
 
 
 def fold_in(seed: int, data: int) -> int:
@@ -571,12 +577,20 @@ def _mean_metrics(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.Te
     return dict(zip(keys, values.unbind()))
 
 
+# the step body's timed device regions, end to end (``tracing.regions``)
+STEP_REGIONS = ("augment", "forward", "loss", "backward", "update")
+
+
 def _train_body(cfg: VinceConfig, state: VinceState, batch, draws: StepDraws,
-                jigsaw_side: Optional[str] = None, mesh: Optional[Mesh] = None):
+                jigsaw_side: Optional[str] = None, mesh: Optional[Mesh] = None,
+                marks=tracing.NO_REGIONS):
     """One step from the augmentation's apply to the enqueue; the learning
-    rate is already in ``state.optimizer``."""
+    rate is already in ``state.optimizer``. ``marks`` (``tracing.regions``
+    of ``STEP_REGIONS``) is marked at each region's boundary."""
     with bind(mesh):
+        marks.mark()
         q_all, k_all = _augment_sources(cfg, batch, draws.augment)
+        marks.mark()
         k_sources = _key_embeddings(cfg, state, k_all, draws, draws.jigsaw.get("key"), mesh)
         out = _encode(state.model, q_all, draws.jigsaw.get("query"))
         align_emb = None
@@ -586,9 +600,11 @@ def _train_body(cfg: VinceConfig, state: VinceState, batch, draws: StepDraws,
             with unrecorded_batch_stats(state.model):
                 align_emb = _encode(state.model, q_all,
                                     draws.jigsaw.get("align"))["embeddings"].float()
+        marks.mark()
         # the loss reads the queue before this step's enqueue
         metrics = _objective(cfg, state.model, out, k_sources, state.queue.vectors, batch,
                              align_emb, mesh)
+        marks.mark()
     place = _place(mesh)
     opt = state.optimizer
     opt.zero_grad()
@@ -598,6 +614,7 @@ def _train_body(cfg: VinceConfig, state: VinceState, batch, draws: StepDraws,
     (metrics["loss/total_loss"] / cfg.queue_axis_size).backward()
     flat_all_reduce_([p.grad for p in opt.params if p.grad is not None], place.world_group,
                      divisor=cfg.data_axis_size)
+    marks.mark()
     opt.step()
     # the running averages moved with each rank's batch statistics
     flat_all_reduce_(_running_averages(state.model, state.key_model), place.data_group,
@@ -612,7 +629,9 @@ def _train_body(cfg: VinceConfig, state: VinceState, batch, draws: StepDraws,
     for si, src in enumerate(cfg.sources):
         enqueue_sharded(state.queue, k_sources[si], src.source_id,
                         shard_index=place.queue_index, num_shards=cfg.queue_axis_size)
-    return _mean_metrics(metrics, place.data_group)
+    metrics = _mean_metrics(metrics, place.data_group)
+    marks.mark()
+    return metrics
 
 
 def _check_step(cfg: VinceConfig, jigsaw_side: Optional[str], mesh: Optional[Mesh]) -> None:
@@ -634,10 +653,13 @@ def make_train_step_fn(cfg: VinceConfig, optimizer: OptimizerSpec,
     d_idx = _place(mesh).data_index
 
     def step(state: VinceState, batch, seed: int = 0):
-        draws = _draw_step(cfg, batch, seed, state.step, jigsaw_side=jigsaw_side,
-                           data_index=d_idx)
-        state.optimizer.set_lr(optimizer.lr(state.step))
-        metrics = _train_body(cfg, state, batch, draws, jigsaw_side, mesh)
+        with tracing.span("vince.step.draws"):
+            draws = _draw_step(cfg, batch, seed, state.step, jigsaw_side=jigsaw_side,
+                               data_index=d_idx)
+        with tracing.span("vince.step.body"):
+            state.optimizer.set_lr(optimizer.lr(state.step))
+            metrics = _train_body(cfg, state, batch, draws, jigsaw_side, mesh,
+                                  tracing.regions(STEP_REGIONS, state.device))
         state.step += 1
         return state, metrics
 
@@ -685,6 +707,7 @@ class _CapturedTrainStep:
         self.state: Optional[VinceState] = None  # the state the graph is bound to
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.static_batch = self.static_draws = self.static_metrics = None
+        self.marks = tracing.NO_REGIONS  # the graph's timed regions, kept while it lives
         self.calls = 0
 
     def __call__(self, state: VinceState, batch, seed: int = 0):
@@ -695,23 +718,39 @@ class _CapturedTrainStep:
         elif state is not self.state:
             raise ValueError("this captured step is bound to another state; make a step for "
                              "each state")
-        draws = _draw_step(self.cfg, batch, seed, state.step, jigsaw_side=self.jigsaw_side,
-                           data_index=_place(self.mesh).data_index)
-        state.optimizer.set_lr(self.optimizer.lr(state.step))
-        if self.calls < WARMUP_STEPS:
-            metrics = self._warm_up(state, batch, draws)
-        elif self.graph is None:
-            metrics = self._capture(state, batch, draws)
+        if self.graph is None:
+            warm = self.calls < WARMUP_STEPS
+            with tracing.span("vince.step.warmup" if warm else "vince.step.capture"):
+                draws = self._draws(state, batch, seed)
+                state.optimizer.set_lr(self.optimizer.lr(state.step))
+                if warm:
+                    metrics = self._warm_up(state, batch, draws)
+                else:
+                    metrics = self._capture(state, batch, draws)
+                metrics = {k: v.clone() for k, v in metrics.items()}
+            if self.calls == WARMUP_STEPS - 1:
+                _count_memory("warmup", state.device)
         else:
-            _copy_leaves(self.static_batch, batch)
-            _copy_leaves(self.static_draws, draws)
-            self.graph.replay()
-            # the body's Python, and so enqueue's host count, ran at capture only
-            state.queue.count_inserted(self.cfg.total_batch)
-            metrics = self.static_metrics
+            with tracing.span("vince.step.draws"):
+                draws = self._draws(state, batch, seed)
+            with tracing.span("vince.step.inputs"):
+                state.optimizer.set_lr(self.optimizer.lr(state.step))
+                _copy_leaves(self.static_batch, batch)
+                _copy_leaves(self.static_draws, draws)
+            with tracing.span("vince.step.replay"):
+                self.graph.replay()
+            self.marks.arm()
+            with tracing.span("vince.step.outputs"):
+                # the body's Python, and so enqueue's host count, ran at capture only
+                state.queue.count_inserted(self.cfg.total_batch)
+                metrics = {k: v.clone() for k, v in self.static_metrics.items()}
         self.calls += 1
         state.step += 1
-        return state, {k: v.clone() for k, v in metrics.items()}
+        return state, metrics
+
+    def _draws(self, state, batch, seed):
+        return _draw_step(self.cfg, batch, seed, state.step, jigsaw_side=self.jigsaw_side,
+                          data_index=_place(self.mesh).data_index)
 
     def _warm_up(self, state, batch, draws):
         # on a side stream, as PyTorch's recipe for capturing a whole network
@@ -728,23 +767,35 @@ class _CapturedTrainStep:
     def _capture(self, state, batch, draws):
         static_batch = tuple({k: v.clone() for k, v in src.items()} for src in batch)
         graph = torch.cuda.CUDAGraph()
+        # the regions' events become the graph's event-record nodes, only
+        # while tracing is on
+        marks = tracing.regions(STEP_REGIONS, state.device)
         # thread-local: another thread (the solver's batch staging) may copy
         # and allocate on its own stream while this one captures
         try:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 metrics = _train_body(self.cfg, state, static_batch, draws, self.jigsaw_side,
-                                      self.mesh)
+                                      self.mesh, marks)
         except RuntimeError as e:
             if self.mesh is None:
                 raise
             raise RuntimeError(f"the capture of the distributed step's collectives failed "
                                f"({NCCL_CAPTURE_ITEM}): {e}") from e
+        _count_memory("capture", state.device)
         # kept only once the capture succeeded; a capture runs nothing, so
         # this call's step is the first replay
         self.graph, self.static_batch, self.static_draws = graph, static_batch, draws
-        self.static_metrics = metrics
+        self.static_metrics, self.marks = metrics, marks
         graph.replay()
         return metrics
+
+
+def _count_memory(after: str, device) -> None:
+    """The caching allocator's reserved and allocated bytes, as counters
+    ``reserved_after_<after>`` and ``allocated_after_<after>``."""
+    if tracing.enabled():
+        tracing.count(f"reserved_after_{after}", torch.cuda.memory_reserved(device))
+        tracing.count(f"allocated_after_{after}", torch.cuda.memory_allocated(device))
 
 
 def make_train_step(cfg: VinceConfig, optimizer: OptimizerSpec,
