@@ -11,7 +11,10 @@ Phases:
      the plain version and one PyTorch library call computing the same function
      (K1 also at a queue of 262144); then hold the forward at a few shapes off
      the main path (ragged ones), and K1 at the queue shards of a distributed
-     step, timed;
+     step, timed; the BatchNorm kernels (no Pallas counterpart) at the
+     benchmark cells' sites, forward and backward against the plain version,
+     timed beside it, cuDNN's BatchNorm and the bound, a captured call's two
+     replays bit-equal to the eager call, and at other dtypes and widths;
   3. run the VINCE pretraining step (batch 128 = 32 videos x 4 frames, 224x224
      crops of 256x256 uint8 canvases, queue 65536, embeddings 128, bf16, fused
      InfoNCE queue kernel) for 2 warm-up and 5 timed steps, counting each
@@ -24,7 +27,8 @@ Phases:
      eager step from two states made from one seed, over 5 batches (3 eager
      warm-up calls, the call that captures and replays, one replay; cuDNN
      deterministic on both sides), with the launches counted at the capture
-     and none at a replay; then a graph captured anew under cuDNN's defaults
+     and none at a replay (the ResNet50's BatchNorm kernels too: 20 sites x 9
+     a step, 12 with sync-BN in phase 12); then a graph captured anew under cuDNN's defaults
      and 5 timed replays, beside the eager timing of phase 3; the same
      comparison with LARS for the ResNet50;
   6. for each backbone, the eval, key-prefill, embed and panel steps once
@@ -85,7 +89,8 @@ Phases:
  12. multi-GPU pretraining over ``torch.distributed`` at a world of one: an
      NCCL group of one rank (a ``TCPStore`` on 127.0.0.1) and a 1x1 mesh. The
      eager distributed step with sync-BN, 5 steps in ``gather`` mode and 5 in
-     ``a2a`` mode (K1 1 and K2 26 launches a step), bit-identical (loss,
+     ``a2a`` mode (K1 1 and K2 26 launches a step; the BatchNorm kernels 240,
+     their moments and gradient sums summed over the group), bit-identical (loss,
      weights, running averages, momentum traces, queue) to phase 3's
      one-device step from the same seed on the same batches under
      deterministic cuDNN: every collective is the identity; the captured
@@ -517,6 +522,230 @@ def check_affine_relu_dot_moments(dev):
             "replaces": "vince_tpu/ops/pallas/folded_dot_kernel.py:96",
             "max_abs_err": max(errs), **total, "bound_by": bound_by,
             "per": "13 sites of one ResNet50 forward at batch 128, 224x224",
+            "per_site": per_site, "check": "ok"}
+
+
+# the BatchNorm module's sites timed in phase 2: the benchmark's cells' real
+# shapes (r50-large.step at 448 frames, r18.step at 256), each [M, C] with the
+# epilogue the block fuses into the call: (what, (N, H, W, C), relu, residual)
+BN_SITES = [("r50 stem", (448, 112, 112, 64), True, False),
+            ("r50 stage 1", (448, 56, 56, 64), True, False),
+            ("r50 stage 4", (448, 7, 7, 512), True, False),
+            ("r18 bn2 + residual", (256, 56, 56, 64), True, True)]
+BN_EPS = 1e-5
+
+
+def bn_inputs(g, dev, m, c, dtype=torch.bfloat16, residual=False):
+    """x [M, C] with a per-channel shift and scale (as a conv's output), the
+    residual, the affine and the cotangent, on the card."""
+    x = (torch.randn(m, c, generator=g, device=dev) * (torch.rand(c, generator=g, device=dev)
+                                                      + 0.5)
+         + torch.randn(c, generator=g, device=dev)).to(dtype)
+    res = torch.randn(m, c, generator=g, device=dev).to(dtype) if residual else None
+    w = torch.rand(c, generator=g, device=dev) + 0.5
+    b = torch.randn(c, generator=g, device=dev) * 0.1
+    return x, res, w, b
+
+
+def bn_call(bnk, x, res, w, b, relu, running=None, dtype=None):
+    """The wrapper's train-mode (or eval-mode) call with gradients: the
+    inputs as leaves, (out, mean, var) and the leaves."""
+    leaves = [t.detach().requires_grad_(True) if t is not None else None
+              for t in (x, w, b, res)]
+    out = bnk.batch_norm(leaves[0], leaves[1], leaves[2], BN_EPS, running=running, relu=relu,
+                         residual=leaves[3], dtype=dtype)
+    return out, [t for t in leaves if t is not None]
+
+
+def bn_layout(bnk, kind, x, y):
+    """The layout the wrapper gives kernel ``kind`` (on the CPU: at 4 CTAs an SM)."""
+    vec = bnk._vec(x.shape[1], x, y)
+    if x.is_cuda:
+        return bnk._layout(kind, x, y, vec)
+    return bnk.layout(*x.shape, vec)
+
+
+def bn_against_plain(bnk, what, x, res, w, b, relu, running=None, dtype=None, g=None):
+    """The kernels against the plain version: the moments at rtol 1e-5, y
+    within one ulp of its type (2^-7 relative in bf16), dx at one bf16 ulp and
+    dweight, dbias at 1e-4 (f32 sums of the same terms in another order), d
+    residual bit-equal (the masked cotangent). The plain backward takes the
+    ReLU's mask from the kernels' output: where a value rounds to either side
+    of 0 (a residual that cancels the normalised value to within an ulp), the
+    two outputs' masks part, and the gradient with them, by a whole cotangent."""
+    from vince_tpu_torch.ops.kernels import plain_versions
+
+    (y, mean, var), leaves = bn_call(bnk, x, res, w, b, relu, running, dtype)
+    cot = torch.randn(y.shape, generator=g, device=y.device).to(y.dtype)
+    grads = torch.autograd.grad(y, leaves, cot)
+    with plain_versions():
+        (yp, mp, vp), lp = bn_call(bnk, x, res, w, b, False, running, dtype)
+        gp = torch.autograd.grad(yp, lp, cot * (y > 0) if relu else cot)
+    yp = torch.relu(yp.detach()) if relu else yp.detach()
+    log(f"batch_norm {what}: x {list(x.shape)} {x.dtype} -> {y.dtype}, relu {relu}, residual "
+        f"{res is not None}, {'eval' if running else 'train'} mode, apply layout "
+        f"{bn_layout(bnk, bnk._APPLY, x, y)}; ReLU masks part at "
+        f"{int(((y > 0) != (yp > 0)).sum())} of {y.numel()} elements")
+    ulp = 2.0 ** -7 if y.dtype == torch.bfloat16 else 1e-5
+    # the moments E[x] and E[x^2] (var = E[x^2] - E[x]^2 cancels the sums'
+    # rounding, which another order of the same f32 sums moves)
+    errs = [compare("mean", mean, mp, 1e-5, 1e-6),
+            compare("E[x^2]", var + mean * mean, vp + mp * mp, 1e-5, 1e-6)]
+    if res is None:
+        errs.append(compare("y", y, yp, ulp, 1e-6))
+    else:
+        # one ulp of the normalised value, rounded before the residual is added
+        err = (y.float() - yp.float()).abs()
+        mag = (yp.float() - res.float()).abs() + yp.float().abs()
+        log(f"  y: max_abs_err={err.max().item():.3e} (within {ulp:.3g} of |y - residual| "
+            f"+ |y|)")
+        if not bool((err <= ulp * mag + 1e-6).all()) or not bool(torch.isfinite(y).all()):
+            fail(f"batch_norm {what}: y disagrees with its plain version")
+        errs.append(err.max().item())
+    for name, a, r in zip(("dx", "dweight", "dbias", "dres"), grads, gp):
+        if name == "dres":
+            if not torch.equal(a, r):
+                fail(f"batch_norm {what}: the residual's gradient differs from the plain one")
+            continue
+        errs.append(compare(name, a, r, 2.0 ** -7 if name == "dx" else 1e-4,
+                            1e-3 if name == "dx" else 1e-4))
+    return errs
+
+
+def bn_replays_bit_equal(bnk, what, x, res, w, b, relu):
+    """Two replays of a captured forward and backward give the eager call's bits."""
+    static = [t.detach().clone() if t is not None else None for t in (x, w, b, res)]
+
+    def call():
+        (y, mean, var), leaves = bn_call(bnk, *static[:1], static[3], *static[1:3], relu)
+        return [y, mean, var, *torch.autograd.grad(y, leaves, torch.ones_like(y))]
+
+    eager = [t.clone() for t in call()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = call()
+    for replay in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, e) for a, e in zip(outs, eager)):
+            fail(f"batch_norm {what}: replay {replay} of the captured call differs from the "
+                 f"eager call")
+    log(f"  {what}: two replays of the captured forward and backward bit-equal to the eager "
+        "call")
+    del graph
+
+
+def bn_library(x, res, w, b, relu, nhwc):
+    """cuDNN's BatchNorm (``F.batch_norm`` on the channels-last NCHW view of
+    the NHWC activation), then the residual add and the ReLU: the yardstick's
+    forward, and its leaves."""
+    import torch.nn.functional as F
+
+    nchw = lambda t: t.detach().view(nhwc).permute(0, 3, 1, 2)
+    xl = nchw(x).requires_grad_(True)
+    wl, bl = w.detach().requires_grad_(True), b.detach().requires_grad_(True)
+    y = F.batch_norm(xl, None, None, wl, bl, training=True, eps=BN_EPS)
+    if res is not None:
+        y = y + nchw(res)
+    return (torch.relu(y) if relu else y), [xl, wl, bl]
+
+
+def check_batch_norm(dev):
+    """The BatchNorm kernels at the cells' sites against the plain version,
+    timed (cold L2) beside the plain version, cuDNN's BatchNorm and the bound
+    (each input byte read once, each output byte written once at 3.35 TB/s);
+    the captured call's replays bit-equal to the eager call; then the other
+    dtypes, widths, eval mode and an address that allows no vector."""
+    from vince_tpu_torch.ops.kernels import batch_norm_kernel as bnk
+    from vince_tpu_torch.ops.kernels import plain_versions
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    errs, per_site = [], []
+    for what, nhwc, relu, residual in BN_SITES:
+        m, c = math.prod(nhwc[:3]), nhwc[3]
+        x, res, w, b = bn_inputs(g, dev, m, c, residual=residual)
+        errs += bn_against_plain(bnk, what, x, res, w, b, relu, g=g)
+        (y, _, _), leaves = bn_call(bnk, x, res, w, b, relu)
+        cot = torch.randn(y.shape, generator=g, device=dev).to(y.dtype)
+        with plain_versions():
+            (yp, _, _), lp = bn_call(bnk, x, res, w, b, relu)
+        yl, ll = bn_library(x, res, w, b, relu, nhwc)
+        cot_l = cot.view(nhwc).permute(0, 3, 1, 2)
+        with torch.no_grad():
+            times = {"ms": time_ms(lambda: bnk.batch_norm(x, w, b, BN_EPS, relu=relu,
+                                                          residual=res)),
+                     "plain_ms": time_ms(lambda: bnk._plain(x, w, b, BN_EPS, None, None, relu,
+                                                            res, x.dtype))}
+        times["library_ms"] = time_ms(lambda: bn_library(x, res, w, b, relu, nhwc))
+        times["backward_ms"] = time_ms(
+            lambda: torch.autograd.grad(y, leaves, cot, retain_graph=True))
+        times["plain_backward_ms"] = time_ms(
+            lambda: torch.autograd.grad(yp, lp, cot, retain_graph=True))
+        times["library_backward_ms"] = time_ms(
+            lambda: torch.autograd.grad(yl, ll, cot_l, retain_graph=True))
+        # each launch's device time, for information: after the JPEG phase's
+        # traces, this process's traces have come back short of the flush's
+        # first launches, and ``launch_ms`` then raises
+        split = {}
+        for fn in (lambda: bnk.batch_norm(x, w, b, BN_EPS, relu=relu, residual=res),
+                   lambda: torch.autograd.grad(y, leaves, cot, retain_graph=True)):
+            try:
+                split.update(launch_ms(fn))
+            except RuntimeError as e:
+                log(f"  per-launch split not read: {e}")
+        elems = m * c
+        fwd_bytes = elems * (2 + 2 + (2 if residual else 0)) + 16 * c
+        # g, x and the output read, dx (and the residual's gradient) written
+        bwd_bytes = elems * (2 + 2 + 2 + 2 + (2 if residual else 0)) + 16 * c
+        times["bound_ms"] = bound(fwd_bytes, 0, BF16_FLOPS)[0]
+        times["backward_bound_ms"] = bound(bwd_bytes, 0, BF16_FLOPS)[0]
+        log("  times (cold L2): forward {ms:.4f} ms (plain {plain_ms:.4f}, library "
+            "{library_ms:.4f}, bound {bound_ms:.4f}); backward {backward_ms:.4f} ms (plain "
+            "{plain_backward_ms:.4f}, library {library_backward_ms:.4f}, bound "
+            "{backward_bound_ms:.4f}); launches ".format(**times)
+            + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+        per_site.append(dict(times, site=what, shape=f"M={m} C={c}", relu=relu,
+                             residual=residual, launch_ms=split))
+        del x, res, y, yp, yl, leaves, lp, ll, cot, cot_l
+    # the captures after every profiled timing: a trace taken after a CUDA
+    # graph was captured, in a process that had traced before, lost kernels
+    for what, nhwc, relu, residual in BN_SITES:
+        x, res, w, b = bn_inputs(g, dev, math.prod(nhwc[:3]), nhwc[3], residual=residual)
+        bn_replays_bit_equal(bnk, what, x, res, w, b, relu)
+        del x, res
+    # off the cells' sites: the f32 stem (conv7) writing bf16, f32 throughout,
+    # widths that take 4-channel vectors or none, an address that allows no
+    # vector, a channel tile wider than one CTA's, eval mode
+    for m, c, dtype, out, relu, residual, running in [
+            (4 * 112 * 112, 64, torch.float32, torch.bfloat16, True, False, False),
+            (1000, 2048, torch.float32, None, False, False, False),
+            (777, 40, torch.bfloat16, None, True, True, False),
+            (513, 20, torch.bfloat16, None, True, False, False),
+            (301, 13, torch.float32, None, True, True, False),
+            (3000, 1280, torch.bfloat16, None, False, False, False),
+            (4000, 256, torch.bfloat16, None, True, True, True)]:
+        x, res, w, b = bn_inputs(g, dev, m, c, dtype, residual)
+        stats = ((torch.randn(c, generator=g, device=dev),
+                  torch.rand(c, generator=g, device=dev) + 0.5) if running else None)
+        errs += bn_against_plain(bnk, f"M={m} C={c}", x, res, w, b, relu, stats, out, g)
+    x, _, w, b = bn_inputs(g, dev, 4097, 64)
+    shifted = x.view(-1)[1:1 + 4096 * 64].view(4096, 64)
+    errs += bn_against_plain(bnk, "at an odd address (scalar loads)", shifted, None, w, b, True,
+                             g=g)
+    step = {k: sum(s[k] for s in per_site) for k in ("ms", "backward_ms", "plain_ms",
+                                                    "plain_backward_ms", "library_ms",
+                                                    "library_backward_ms", "bound_ms",
+                                                    "backward_bound_ms")}
+    return {"name": "batch_norm", "route": "cuda",
+            "source": "vince_tpu_torch/csrc/batch_norm.cu",
+            "replaces": "none (XLA fuses flax's nn.BatchNorm)", "max_abs_err": max(errs),
+            "bound_by": "bytes", **step,
+            "per": "the sum of the four sites of BN_SITES, one call each",
             "per_site": per_site, "check": "ok"}
 
 
@@ -1359,7 +1588,7 @@ def profile_step(step, state, batch, path):
         "{:.3f} ms before the first kernel, {:.3f} between kernels, {:.3f} after the "
         "last; table in {}".format(*idle, path))
     for e in prof.key_averages():  # the port's own kernels
-        own = re.search(r"(ardm|qlse|acs|dw)_\w+", e.key)
+        own = re.search(r"(ardm|qlse|acs|dw|bn)_\w+", e.key)
         if own and e.device_type == torch.autograd.DeviceType.CUDA:
             log(f"    {own.group(0)}: {e.count} launches, "
                 f"{e.self_device_time_total / 1e3:.3f} ms")
@@ -1404,8 +1633,35 @@ def wrappers():
 
 
 def reset_counts():
-    for w in wrappers().values():
+    from vince_tpu_torch.ops.kernels.batch_norm_kernel import batch_norm
+
+    for w in (*wrappers().values(), batch_norm):
         w.launches = w.plain_calls = 0
+
+
+# BatchNorm module sites of phase 3's ResNet50 (b=128): the stem, the 16 bn1
+# and stage 1's 3 bn2 (C = 64, which K2 does not take); each runs in the key
+# forward, the query forward and the query backward, 3 launches each, 4 with
+# sync-BN (a second finishing launch on the summed moments or sums)
+RESNET50_BN_SITES = 20
+
+
+def bn_per_step(cfg):
+    """The BatchNorm kernels' launches in one ResNet50 train step of ``cfg``."""
+    return RESNET50_BN_SITES * 3 * (4 if cfg.sync_bn else 3)
+
+
+def expect_bn(what, expected):
+    """The BatchNorm wrapper's launches since the last reset, none of them
+    through its plain version; returns the launches."""
+    from vince_tpu_torch.ops.kernels.batch_norm_kernel import batch_norm
+
+    log(f"  {what}: batch_norm launches {batch_norm.launches}, plain calls "
+        f"{batch_norm.plain_calls}")
+    if batch_norm.launches != expected or batch_norm.plain_calls:
+        fail(f"{what}: batch_norm launched {batch_norm.launches} times with "
+             f"{batch_norm.plain_calls} plain calls, expected {expected} and none")
+    return batch_norm.launches
 
 
 def read_counts():
@@ -1554,11 +1810,12 @@ def update_gap(ref_state, state, init):
     return math.sqrt(num / max(den, 1e-30))
 
 
-def captured_calls(dev, step, state, steps, expected_per_step):
+def captured_calls(dev, step, state, steps, expected_per_step, bn_step=None):
     """``steps`` calls of a captured step on batches 0, 1, ... with seeds 0,
     1, ..., each call's launches checked: the kernels' per step at the
-    warm-up calls and at the capture, none at a replay. Returns the losses
-    and the launches at the capture."""
+    warm-up calls and at the capture, none at a replay (and the BatchNorm
+    kernels' ``bn_step``, where given). Returns the losses and the launches
+    at the capture."""
     from vince_tpu_torch.solvers.vince_step import WARMUP_STEPS
 
     if steps <= WARMUP_STEPS:
@@ -1572,6 +1829,9 @@ def captured_calls(dev, step, state, steps, expected_per_step):
                 if i == WARMUP_STEPS else "replay")
         launches = expect_counts(f"call {i} ({what})",
                                  expected_per_step if i <= WARMUP_STEPS else {})
+        if bn_step is not None:
+            n = expect_bn(f"call {i} ({what})", bn_step if i <= WARMUP_STEPS else 0)
+            launches = dict(launches, **({"batch_norm": n} if n else {}))
         if i == WARMUP_STEPS:
             capture_launches = launches
         losses.append(metrics["loss/total_loss"].item())
@@ -1605,8 +1865,9 @@ def run_captured(dev, backbone, kind="sgd", steps=5, timed=5, profile_path=None,
     s_eager = init_vince_state(0, cfg, opt, device=dev, mesh=mesh)
     s_graph = init_vince_state(0, cfg, opt, device=dev, mesh=mesh)
     init = {k: v.detach().clone() for k, v in s_eager.model.named_parameters()}
+    bn_step = bn_per_step(cfg) if backbone == "ResNet50" else None
     losses_g, capture_launches = captured_calls(dev, make_train_step(cfg, opt, mesh=mesh),
-                                                s_graph, steps, phase["per_step"])
+                                                s_graph, steps, phase["per_step"], bn_step)
     eager = make_train_step_fn(cfg, opt, mesh=mesh)
     loss_gaps = []
     for i, loss_g in enumerate(losses_g):
@@ -1636,12 +1897,14 @@ def run_captured(dev, backbone, kind="sgd", steps=5, timed=5, profile_path=None,
         f"a new state and a new capture")
     state = init_vince_state(0, cfg, opt, device=dev, mesh=mesh)
     captured = make_train_step(cfg, opt, mesh=mesh)
-    captured_calls(dev, captured, state, WARMUP_STEPS + 1, phase["per_step"])
+    captured_calls(dev, captured, state, WARMUP_STEPS + 1, phase["per_step"], bn_step)
     batch = make_batch(dev)
     reset_counts()
     ms_step, step_ms, _, peak = time_steps(captured, state, batch, timed)
     log_times("captured", ms_step, step_ms, peak)
     expect_counts(f"{timed} timed replays", {})
+    if bn_step is not None:
+        expect_bn(f"{timed} timed replays", 0)
     result.update(ms_per_step=ms_step, peak_gib=peak)
     if profile_path:
         root, ext = os.path.splitext(profile_path)
@@ -3049,6 +3312,10 @@ def run_distributed_eager(dev, mesh, steps=DIST_TRAIN_STEPS):
             launches = expect_counts(
                 f"{steps} distributed steps ({TRAIN_PHASES['ResNet50']['why']})",
                 {n: v * steps for n, v in TRAIN_PHASES["ResNet50"]["per_step"].items()})
+            # sync-BN through the kernels: the moments and the gradient sums
+            # summed over the group between their launches
+            launches["batch_norm"] = expect_bn(f"{steps} distributed steps, sync-BN",
+                                               bn_per_step(cfg) * steps)
             ms["one"], losses["one"] = run(step_one, s_one)
             for i, (a, b) in enumerate(zip(losses["dist"], losses["one"])):
                 log(f"    step {i}: loss distributed {a!r}, one device {b!r}")
@@ -5006,7 +5273,8 @@ def main():
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     times = build.build_all(["queue_logsumexp", "affine_relu_dot_moments", "depthwise_conv",
-                             "affine_conv3x3_stats", "jpeg_decode"], verbose=args.ptxas)
+                             "affine_conv3x3_stats", "jpeg_decode", "batch_norm"],
+                            verbose=args.ptxas)
     log(f"build: {time.perf_counter() - t0:.1f} s wall ({times})")
     # phase 9's logs and checkpoints, kept until phase 10 has read them
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
@@ -5030,7 +5298,7 @@ def run_phases(args, dev, card, tmp):
     seconds = lap.seconds  # of each part, for the time limit of the whole script
     kernels = [check_queue_logsumexp(dev), check_affine_relu_dot_moments(dev),
                check_affine_conv3x3_stats(dev), *check_depthwise_conv(dev),
-               *check_jpeg_kernels(dev)]
+               *check_jpeg_kernels(dev), check_batch_norm(dev)]
     kernels[0]["at_queue_shards"] = check_other_shapes(dev)
     lap("2 kernels")
     if not args.kernels_only:

@@ -2,7 +2,8 @@
 // a block, a block's threads met at __syncthreads by a barrier, the blocks of
 // a grid run one after another by the same threads, shared memory one buffer.
 // The stand-in of jpeg_decode.cu (tests/torch_port_jpeg_standin.py) compiles
-// that file's kernels under it.
+// that file's kernels under it; tests/test_torch_port_batch_norm_standin.py
+// the whole of batch_norm.cu, its launches rewritten.
 #include <pthread.h>
 #include <stdint.h>
 #include <string.h>

@@ -8,7 +8,9 @@ Parameter names follow torchvision (``layer1.0.conv1.weight``, conv weights
 
 BatchNorm follows flax, not ``torch.nn.BatchNorm2d``: statistics in float32,
 the uncentered variance max(E[x²]−μ², 0), and running averages updated as
-0.9·old + 0.1·batch with the *biased* batch variance. Inside
+0.9·old + 0.1·batch with the *biased* batch variance. Its arithmetic, and the
+residual add and the ReLU that the blocks fuse into its call, are
+``ops/kernels/batch_norm_kernel.py``'s (CUDA kernels on the card). Inside
 ``unrecorded_batch_stats(model)`` a train-mode forward normalises by the
 batch's statistics and leaves the running averages as they were, as the JAX
 eval and prefill steps do when they drop the ``batch_stats`` they mutated.
@@ -55,7 +57,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from vince_tpu_torch.ops.kernels import folded_dot_kernel
+from vince_tpu_torch.ops.kernels import batch_norm_kernel, folded_dot_kernel
 from vince_tpu_torch.parallel.collectives import group_size, psum
 from vince_tpu_torch.parallel.mesh import axis_group, bind, bound_mesh
 
@@ -159,24 +161,18 @@ class BatchNorm(nn.Module):
                 self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
         return mean, var
 
-    def forward(self, x):
+    def forward(self, x, relu: bool = False, residual=None, dtype=None):
+        """BN(x) [+ residual] [relu] in x's dtype (or ``dtype``, without a
+        residual), through ``batch_norm_kernel``: its kernels on the card."""
         if self.training:
-            x32 = x.float()
-            dims = tuple(range(x.dim() - 1))
-            # one [2, C] tensor of the moments whether or not they are summed
-            # over the axis: the backward then runs its sums in one order, and
-            # a world of one gives the single device's bits
-            moments = torch.stack([x32.mean(dim=dims), (x32 * x32).mean(dim=dims)])
-            group = axis_group(self.axis_name)
-            if group is not None:
-                moments = psum(moments, group) / group_size(group)
-            mean, mean2 = moments.unbind()
-            var = torch.clamp(mean2 - mean * mean, min=0.0)
-            mean, var = self.batch_stats(mean, var)
-        else:
-            mean, var = self.batch_stats(None, None)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return ((x.float() - mean) * mul + self.bias).to(x.dtype)
+            y, mean, var = batch_norm_kernel.batch_norm(
+                x, self.weight, self.bias, self.eps, group=axis_group(self.axis_name),
+                relu=relu, residual=residual, dtype=dtype)
+            self.batch_stats(mean, var)
+            return y
+        return batch_norm_kernel.batch_norm(
+            x, self.weight, self.bias, self.eps, running=self.batch_stats(None, None),
+            relu=relu, residual=residual, dtype=dtype)[0]
 
 
 class GroupNorm(nn.Module):
@@ -197,14 +193,19 @@ class GroupNorm(nn.Module):
         nn.init.constant_(self.weight, 0.0 if self.zero_scale else 1.0)
         nn.init.zeros_(self.bias)
 
-    def forward(self, x):
+    def forward(self, x, relu: bool = False, residual=None, dtype=None):
+        """GN(x) [+ residual] [relu], cast to ``dtype``: ``BatchNorm``'s call."""
         n, c, g = x.shape[0], x.shape[-1], self.groups
         x32 = x.float().reshape(n, -1, g, c // g)
         mean = x32.mean(dim=(1, 3), keepdim=True)
         var = torch.clamp((x32 * x32).mean(dim=(1, 3), keepdim=True) - mean * mean, min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight.reshape(g, c // g)
-        y = (x32 - mean) * mul + self.bias.reshape(g, c // g)
-        return y.reshape(x.shape).to(x.dtype)
+        y = ((x32 - mean) * mul + self.bias.reshape(g, c // g)).reshape(x.shape).to(x.dtype)
+        if residual is not None:
+            y = y + residual
+        if relu:
+            y = torch.relu(y)
+        return y.to(dtype or x.dtype)
 
 
 @contextlib.contextmanager
@@ -349,15 +350,14 @@ class BasicBlock(nn.Module):
 
     def forward(self, x):
         residual = x
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
         if self.downsample is not None:
             conv, bn = self.downsample
             if self.fold:
                 residual = folded_dot_bn(residual, conv, bn, self.dtype)
             else:
                 residual = bn(conv(residual))
-        return torch.relu(y + residual)
+        y = self.bn1(self.conv1(x), relu=True)
+        return self.bn2(self.conv2(y), residual=residual, relu=True)
 
 
 class Bottleneck(nn.Module):
@@ -389,7 +389,7 @@ class Bottleneck(nn.Module):
         if self.fold_all:
             y = folded_dot_bn(x, self.conv1, self.bn1, self.dtype, act=torch.relu)
         else:
-            y = torch.relu(self.bn1(self.conv1(x)))
+            y = self.bn1(self.conv1(x), relu=True)
         y = self.conv2(y)
         if self.fold:
             if self.downsample is not None:
@@ -399,15 +399,14 @@ class Bottleneck(nn.Module):
                 return fused_bn_relu_folded_dot(
                     y, self.bn2, self.conv3, self.bn3, self.dtype,
                     act=torch.relu, residual=residual)
-            y = torch.relu(self.bn2(y))
+            y = self.bn2(y, relu=True)
             return folded_dot_bn(y, self.conv3, self.bn3, self.dtype,
                                  act=torch.relu, residual=residual)
-        y = torch.relu(self.bn2(y))
-        y = self.bn3(self.conv3(y))
+        y = self.bn2(y, relu=True)
         if self.downsample is not None:
             conv, bn = self.downsample
             residual = bn(conv(residual))
-        return torch.relu(y + residual)
+        return self.bn3(self.conv3(y), residual=residual, relu=True)
 
 
 class ResNet(nn.Module):
@@ -465,7 +464,7 @@ class ResNet(nn.Module):
                 m.reset_parameters(generator)
 
     def forward(self, x):
-        x = torch.relu(self.bn1(self.conv1(x.to(self.dtype))).to(self.dtype))
+        x = self.bn1(self.conv1(x.to(self.dtype)), relu=True, dtype=self.dtype)
         x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1).permute(0, 2, 3, 1)
         for stage in range(self.num_stages):
             for block in getattr(self, f"layer{stage + 1}"):
